@@ -1,0 +1,646 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # from the repository root, one GPU
+
+Phases, one line each (any failure raises and the script exits non-zero):
+
+1. the card and software: ``nvidia-smi`` name and power limit, torch and
+   CUDA versions;
+2. build: every kernel of ``src/repro_torch/kernels/csrc`` compiled by
+   ``nvcc`` for sm_90a (one process per source, in parallel), with the
+   seconds it took;
+3. after the host load of the data below, every column of a lineitem
+   and an orders container decoded on the card bit for bit against the
+   host decode (FLOAT_SCALED's division included), and bitunpack and
+   rle_grouped_agg against their plain PyTorch versions on the card, on
+   the payloads of a real lineitem container: bitunpack bit-exact for
+   every width 1..32 with and without base; rle_grouped_agg counts
+   exact, sums within rtol 1e-5;
+4. the main path at TPC-H SF1 cardinalities (6,000,000 lineitem and
+   1,500,000 orders rows from ``star_schema(seed=0)``) in the layout of
+   ``benchmarks/cstore_queries.py::build_db`` (4 nodes, k_safety=0,
+   block_rows=4096, RLE l_shipdate): the seven queries Q1-Q7 through
+   ``db.query(...).collect()``, cold then warm, and one query scanning
+   ``orders`` as the fact table, each held against a float64 numpy
+   oracle (counts and int sums exact, float sums and avgs rtol 1e-4).
+   The kernels' launch counters are zeroed just before and read just
+   after: every kernel must have launched (each query's line shows its
+   launches as bitunpack/seg_preagg/rle_grouped_agg, cold and warm).
+   seg_preagg is then held against its plain version on the very inputs
+   the main path gave it, once per shape (query, rows, domain): ints
+   exact, f32 sums within rtol 1e-5 (atomics reorder the sums).  Then
+   one more warm run of each query under torch.profiler gives its
+   device time and busy share;
+5. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
+   general path, then again after ``run_tuple_mover(force_moveout=True)``,
+   all against the oracle.
+
+The last lines: the card's name and power limit, one JSON object with a
+row per kernel and, for seg_preagg, per main-path shape (``ms``,
+``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
+``kernel_device_ms``: the kernel alone in a torch.profiler trace;
+``bound_ms``: the bytes each call must move on its inputs over the
+H100's 3.35 TB/s; ``launches``: the main-path run's), and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository beside it, the script fails and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
+N_FACT, N_DIM = 6_000_000, 1_500_000
+N_TRICKLE = 10_000
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _say(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call, from CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _profile(fn, reps: int = 1):
+    """Device milliseconds per call from a torch.profiler trace of
+    ``reps`` calls: the total over every device kernel and the share by
+    kernel name.  Returns (None, {}) when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            by_name[e.key] = us / 1e3 / reps
+    total = sum(by_name.values())
+    return (total or None), by_name
+
+
+def _kernel_device_ms(fn, kernel: str):
+    """Device ms per call of the named CUDA kernel alone (without the
+    wrapper's output fills and launch gaps), or None when the trace holds
+    no device time."""
+    _, by_name = _profile(fn, reps=20)
+    return sum(v for k, v in by_name.items() if kernel in k) or None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+# ------------------------------------------------------------------ data --
+
+def build_db(fact, dim, device, block_rows=4096, cache_budget=4 << 30):
+    """The cstore_queries layout, built with the port."""
+    from repro_torch.core import (ColumnDef, Encoding, SQLType, TableSchema,
+                                  VerticaDB, super_projection)
+    db = VerticaDB(n_nodes=4, k_safety=0, block_rows=block_rows,
+                   cache_budget_bytes=cache_budget, device=device)
+    schema = TableSchema("lineitem", (
+        ColumnDef("l_orderkey"), ColumnDef("l_suppkey"),
+        ColumnDef("l_shipdate"), ColumnDef("l_qty"),
+        ColumnDef("l_extprice", SQLType.FLOAT)))
+    db.catalog.add_table(schema)
+    db.create_projection(super_projection(
+        schema, ("l_shipdate", "l_suppkey"), ("l_orderkey",),
+        encodings={"l_shipdate": Encoding.RLE}))
+    db.create_table(TableSchema("orders", (
+        ColumnDef("o_orderkey"), ColumnDef("o_custkey"),
+        ColumnDef("o_orderdate"))), sort_order=("o_orderkey",),
+        segment_by=())
+    t = db.begin(direct_to_ros=True)
+    db.insert(t, "lineitem", fact)
+    db.insert(t, "orders", dim)
+    db.commit(t)
+    return db
+
+
+def make_queries(db):
+    """Q1-Q7 of benchmarks/cstore_queries.py, plus a scan of orders."""
+    from repro_torch.engine import col
+    li = db.query("lineitem")
+    return {
+        "Q1": li.where(col("l_shipdate") == 180).agg(c=("*", "count")),
+        "Q2": li.where(col("l_shipdate") == 180)
+                .group_by("l_suppkey").agg(c=("*", "count")),
+        "Q3": li.where((col("l_shipdate") > 60) & (col("l_shipdate") < 120))
+                .group_by("l_suppkey").agg(s=("l_qty", "sum")),
+        "Q4": li.group_by("l_shipdate").agg(c=("*", "count")),
+        "Q5": li.join("orders", on=("l_orderkey", "o_orderkey"),
+                      cols=("o_custkey",), where=col("o_orderdate") < 60)
+                .group_by("o_custkey").agg(s=("l_extprice", "sum")),
+        "Q6": li.where(col("l_shipdate") > 300)
+                .group_by("l_suppkey").agg(a=("l_extprice", "avg")),
+        "Q7": li.where(col("l_suppkey") < 10)
+                .join("orders", on=("l_orderkey", "o_orderkey"),
+                      cols=("o_custkey",))
+                .group_by("o_custkey").agg(c=("*", "count")),
+        "Qorders": db.query("orders").where(col("o_orderkey") < N_DIM // 2)
+                     .group_by("o_orderdate")
+                     .agg(n=("*", "count"), s=("o_custkey", "sum")),
+    }
+
+
+def oracle(name, fact, dim):
+    """Independent float64 numpy answer: {group key: {agg: value}} as
+    (keys, {agg: values}) sorted by key; scalar queries use key 0."""
+    f, d = fact, dim
+    sd = f["l_shipdate"]
+    if name == "Q1":
+        return np.zeros(1, np.int64), {"c": np.array([(sd == 180).sum()])}
+    if name == "Qorders":
+        m = d["o_orderkey"] < N_DIM // 2
+        keys, inv = np.unique(d["o_orderdate"][m], return_inverse=True)
+        return keys, {"n": np.bincount(inv),
+                      "s": np.bincount(inv, d["o_custkey"][m]
+                                       .astype(np.float64))}
+    cust = d["o_custkey"][f["l_orderkey"]]        # o_orderkey == position
+    if name == "Q2":
+        m, key, agg = sd == 180, f["l_suppkey"], ("c", None, "count")
+    elif name == "Q3":
+        m, key, agg = (sd > 60) & (sd < 120), f["l_suppkey"], \
+            ("s", f["l_qty"], "sum")
+    elif name == "Q4":
+        m, key, agg = np.ones(sd.size, bool), sd, ("c", None, "count")
+    elif name == "Q5":
+        m = d["o_orderdate"][f["l_orderkey"]] < 60
+        key, agg = cust, ("s", f["l_extprice"], "sum")
+    elif name == "Q6":
+        m, key, agg = sd > 300, f["l_suppkey"], ("a", f["l_extprice"], "avg")
+    else:   # Q7
+        m, key, agg = f["l_suppkey"] < 10, cust, ("c", None, "count")
+    keys, inv = np.unique(key[m], return_inverse=True)
+    cnt = np.bincount(inv)
+    out, vals, kind = agg
+    if kind == "count":
+        return keys, {out: cnt}
+    s = np.bincount(inv, vals[m].astype(np.float64))
+    return keys, {out: s / cnt if kind == "avg" else s}
+
+
+def check(name, res, fact, dim) -> None:
+    keys, want = oracle(name, fact, dim)
+    key_col = {"Q1": None, "Q2": "l_suppkey", "Q3": "l_suppkey",
+               "Q4": "l_shipdate", "Q5": "o_custkey", "Q6": "l_suppkey",
+               "Q7": "o_custkey", "Qorders": "o_orderdate"}[name]
+    got_keys = np.zeros(1, np.int64) if key_col is None \
+        else np.asarray(res[key_col]).astype(np.int64)
+    order = np.argsort(got_keys, kind="stable")
+    if not np.array_equal(got_keys[order], keys):
+        raise AssertionError(f"{name}: group keys differ from the oracle")
+    for agg, w in want.items():
+        g = np.asarray(res[agg])[order]
+        if np.issubdtype(g.dtype, np.integer):
+            if not np.array_equal(g.astype(np.int64),
+                                  np.asarray(w).astype(np.int64)):
+                raise AssertionError(f"{name}.{agg}: ints differ")
+        elif not np.allclose(g.astype(np.float64), w, rtol=1e-4, atol=0):
+            err = np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))
+            raise AssertionError(f"{name}.{agg}: rel err {err:.3g}")
+
+
+# -------------------------------------------------------------- kernels --
+
+def decode_checks(db, device) -> None:
+    """Every column of one lineitem and one orders container decoded on
+    the card (``decode_torch``, bitunpack included) against the host
+    ``EncodedColumn.decode_blocks()`` in the 32-bit lanes, bit for bit --
+    FLOAT_SCALED's division included."""
+    from repro_torch.core.encodings import decode_torch
+    seen = {}
+    for table in ("lineitem_super", "orders_super"):
+        c = db.nodes[0].stores[table].containers[0]
+        for name, col in c.columns.items():
+            got = decode_torch(col, device).cpu().numpy()
+            host = col.decode_blocks()
+            host = host.astype(np.float32 if host.dtype.kind == "f"
+                               else np.int32)
+            if got.dtype != host.dtype or got.shape != host.shape or \
+                    not np.array_equal(got.view(np.uint32),
+                                       host.view(np.uint32)):
+                raise AssertionError(f"{table}.{name} ({col.encoding}): "
+                                     f"card decode differs from host")
+            seen[name] = col.encoding.value
+    _say("decode", bit_exact=True,
+         columns=json.dumps(seen, separators=(",", ":")))
+
+
+def kernel_checks(db, device):
+    """Phase 3: bitunpack and rle_grouped_agg against their plain versions
+    on the card, on the payloads of a real lineitem container (seg_preagg
+    is checked on the main path's own inputs: seg_preagg_rows)."""
+    import torch
+    from repro_torch.core.encodings import to_device
+    from repro_torch.kernels import ops
+    rows = []
+    container = db.nodes[0].stores["lineitem_super"].containers[0]
+    rng = np.random.default_rng(0)
+
+    # --- bitunpack: every width at the container's block count, then the
+    # container's packed l_orderkey stream
+    col = container.columns["l_orderkey"]
+    nb, br = col.n_blocks, col.block_rows
+    worst = 0
+    for width in range(1, 33):
+        words = to_device(rng.integers(0, 1 << 32, (nb, br // 32 * width),
+                                       dtype=np.uint64)
+                          .astype(np.uint32), device)
+        base = torch.as_tensor(rng.integers(-2**31, 2**31, nb,
+                                            dtype=np.int64)
+                               .astype(np.int32), device=device)
+        for b in (None, base):
+            got = ops.bitunpack(words, width, br, base=b)
+            want = ops.bitunpack_plain(words, width, br, base=b)
+            worst = max(worst, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"bitunpack width {width} base "
+                                     f"{b is not None}: not bit-exact")
+    if col.encoding.value != "delta_value":
+        raise AssertionError(f"l_orderkey is {col.encoding}, expected a "
+                             f"packed DELTA_VALUE stream")
+    width = col.widths["deltas_packed"]
+    words = to_device(col.arrays["deltas_packed"], device)
+    base = to_device(col.arrays["base"], device)
+    got = ops.bitunpack(words, width, br, base=base)
+    want = ops.bitunpack_plain(words, width, br, base=base)
+    host = col.decode_blocks()
+    if not (torch.equal(got, want)
+            and np.array_equal(got.cpu().numpy(), host.astype(np.int32))):
+        raise AssertionError("bitunpack on l_orderkey: not bit-exact")
+    nbytes = words.numel() * 4 + got.numel() * 4 + base.numel() * 4
+    rows.append({
+        "name": "bitunpack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitunpack.cu",
+        "replaces": "src/repro/kernels/bitunpack.py:120",
+        "max_abs_err": float(worst),
+        "ms": _time_ms(lambda: ops.bitunpack(words, width, br, base=base)),
+        "plain_ms": _time_ms(lambda: ops.bitunpack_plain(
+            words, width, br, base=base)),
+        "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None,
+        "kernel_device_ms": _kernel_device_ms(
+            lambda: ops.bitunpack(words, width, br, base=base),
+            "bitunpack_kernel"),
+        "shape": f"words {tuple(words.shape)} w={width} + base"})
+    _say("kernel", name="bitunpack", widths="1..32", base="with+without",
+         bit_exact=True, real_width=width, ms=f"{rows[-1]['ms']:.4f}",
+         kernel_device_ms=_fmt(rows[-1]["kernel_device_ms"]),
+         plain_ms=f"{rows[-1]['plain_ms']:.4f}",
+         bound_ms=f"{rows[-1]['bound_ms']:.4f}")
+
+    # --- rle_grouped_agg: the container's RLE l_shipdate runs (Q4)
+    col = container.columns["l_shipdate"]
+    rv = to_device(col.arrays["run_values"], device)
+    rl = to_device(col.arrays["run_lengths"], device)
+    domain = 365
+    got = ops.rle_grouped_agg(rv, rl, domain=domain)
+    want = ops.rle_grouped_agg_plain(rv, rl, domain=domain)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(got[3], want[3])
+            and torch.allclose(got[1], want[1], rtol=1e-5, atol=0)):
+        raise AssertionError("rle_grouped_agg differs from its plain version")
+    shipdate = col.decode()
+    host = np.bincount(shipdate, minlength=domain)
+    pad = col.n_blocks * br - col.n_rows        # tail padding repeats last
+    host[shipdate[-1]] += pad
+    if not np.array_equal(got[0].cpu().numpy(), host):
+        raise AssertionError("rle_grouped_agg counts differ from numpy")
+    err = float((got[1] - want[1]).abs().max())
+    rows.append({
+        "name": "rle_grouped_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rle_grouped_agg.cu",
+        "replaces": "src/repro/kernels/rle_scan_agg.py:131",
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: ops.rle_grouped_agg(rv, rl, domain=domain)),
+        "plain_ms": _time_ms(lambda: ops.rle_grouped_agg_plain(
+            rv, rl, domain=domain)),
+        "bound_ms": _bound_ms(rv.numel() * 8 + 4 * domain * 4),
+        "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: torch.zeros(
+            domain, dtype=torch.int32, device=device).index_add_(
+                0, rv.reshape(-1).long(), rl.reshape(-1))),
+        "kernel_device_ms": _kernel_device_ms(
+            lambda: ops.rle_grouped_agg(rv, rl, domain=domain),
+            "rle_grouped_agg_kernel"),
+        "shape": f"runs {tuple(rv.shape)} domain={domain}"})
+    _say("kernel", name="rle_grouped_agg", counts_exact=True,
+         sum_max_abs_err=f"{err:.3g}", ms=f"{rows[-1]['ms']:.4f}",
+         kernel_device_ms=_fmt(rows[-1]["kernel_device_ms"]),
+         plain_ms=f"{rows[-1]['plain_ms']:.4f}",
+         library_ms=f"{rows[-1]['library_ms']:.4f}",
+         bound_ms=f"{rows[-1]['bound_ms']:.4f}")
+    return rows
+
+
+class SegCapture:
+    """Records the main path's ``seg_preagg`` calls by shape -- (query,
+    rows, domain, aggregates) -- with the number of calls and the inputs
+    of the last.  It wraps ``ops.seg_preagg``, the name the engine calls;
+    the wrapper underneath still counts every launch."""
+
+    def __init__(self):
+        self.query = None
+        self.shapes = {}          # shape -> [calls, (keys, valid, values)]
+        self._inner = None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._inner = inner = ops.seg_preagg
+
+        def wrapped(keys, valid, values, domain, aggs):
+            if keys.is_cuda and keys.numel():     # the calls that launch
+                shape = (self.query, keys.numel(), int(domain), tuple(aggs))
+                entry = self.shapes.setdefault(shape, [0, None])
+                entry[0] += 1
+                entry[1] = (keys, valid, dict(values))
+            return inner(keys, valid, values, domain, aggs)
+        ops.seg_preagg = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.seg_preagg = self._inner
+
+
+def _seg_bound_bytes(valid, n_cols: int, domain: int, n_out: int) -> int:
+    """Bytes ``seg_preagg`` must move on these inputs: the whole mask, the
+    32-byte sectors (8 rows of int32 or f32) of the keys and of each value
+    column that hold at least one valid row -- the kernel reads no other
+    key or value -- and each ``(domain,)`` output once."""
+    import torch
+    pad = (-valid.numel()) % 8
+    v = torch.cat([valid, valid.new_zeros(pad)]) if pad else valid
+    sectors = int(v.view(-1, 8).any(1).sum())
+    return valid.numel() + sectors * 32 * (1 + n_cols) + domain * 4 * n_out
+
+
+def seg_preagg_rows(capture, launched: int, device):
+    """``seg_preagg`` against its plain version on the card, once per shape
+    the main path gave it and on the inputs it gave: the query's own
+    aggregates plus count, sum, min and max of an int32 column (full range,
+    so sums wrap) and an f32 column of the same rows -- ints and min/max
+    exact, f32 sums and avgs within rtol 1e-5 (atomics reorder the sums).
+    One JSON row per shape, timed on the query's own aggregates, with the
+    launches of that shape in the main-path run."""
+    import torch
+    from repro_torch.kernels import ops
+    calls = sum(c for c, _ in capture.shapes.values())
+    if calls != launched:
+        raise AssertionError(f"seg_preagg: {calls} captured calls, "
+                             f"{launched} launches")
+    rng = np.random.default_rng(1)
+    extra = (("xn", "*", "count"), ("xsi", "xi", "sum"),
+             ("xmni", "xi", "min"), ("xmxi", "xi", "max"),
+             ("xsf", "xf", "sum"), ("xmnf", "xf", "min"),
+             ("xmxf", "xf", "max"))
+    rows = []
+    for (query, n, domain, aggs), (count, (keys, valid, values)) in \
+            capture.shapes.items():
+        valid = valid.to(torch.bool)
+        vals = dict(values)
+        vals["xi"] = torch.as_tensor(rng.integers(
+            -2**31, 2**31, n, dtype=np.int64).astype(np.int32),
+            device=device)
+        vals["xf"] = torch.as_tensor(rng.uniform(0, 1e4, n)
+                                     .astype(np.float32), device=device)
+        every = tuple(aggs) + extra
+        got = ops.seg_preagg(keys, valid, vals, domain, every)
+        want = ops.seg_preagg_plain(keys, valid, vals, domain, every)
+        kinds = {name: kind for name, _, kind in every}
+        err = 0.0
+        for name, w in want.items():
+            g = got[name]
+            if g.dtype == torch.int32 or kinds.get(name) in ("min", "max"):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"seg_preagg {query} {name}")
+            else:
+                if not torch.allclose(g, w, rtol=1e-5, atol=0):
+                    raise AssertionError(f"seg_preagg {query} {name}")
+                err = max(err, float((g - w).abs().max()))
+        cols = {c for _, c, kind in aggs if kind != "count"}
+        n_out = 1 + sum(kind != "count" for _, _, kind in aggs)
+        kidx = keys.to(torch.int64).clamp(0, domain - 1)
+        summed = [c for _, c, kind in aggs if kind in ("sum", "avg")]
+        if summed:
+            lib_in = torch.where(valid, vals[summed[0]], 0)
+            lib_dtype = lib_in.dtype
+        else:
+            lib_in, lib_dtype = valid.to(torch.int32), torch.int32
+        row = {
+            "name": "seg_preagg", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/seg_preagg.cu",
+            "replaces": "src/repro/kernels/seg_preagg.py:123",
+            "launches": count, "max_abs_err": err,
+            "ms": _time_ms(lambda: ops.seg_preagg(keys, valid, values,
+                                                  domain, aggs)),
+            "plain_ms": _time_ms(lambda: ops.seg_preagg_plain(
+                keys, valid, values, domain, aggs)),
+            "bound_ms": _bound_ms(_seg_bound_bytes(valid, len(cols),
+                                                   domain, n_out)),
+            "bound_by": "bytes",
+            "library_ms": _time_ms(lambda: torch.zeros(
+                domain, dtype=lib_dtype, device=device).index_add_(
+                    0, kidx, lib_in)),
+            "kernel_device_ms": _kernel_device_ms(
+                lambda: ops.seg_preagg(keys, valid, values, domain, aggs),
+                "seg_preagg_kernel"),
+            "shape": f"{query}: n={n} domain={domain} valid="
+                     f"{int(valid.sum())} aggs="
+                     + "+".join(kind for _, _, kind in aggs)}
+        rows.append(row)
+        _say("kernel", name="seg_preagg", query=query, n=n, domain=domain,
+             valid=int(valid.sum()), launches=count, ints_exact=True,
+             f32_sum_max_abs_err=f"{err:.3g}", ms=f"{row['ms']:.4f}",
+             kernel_device_ms=_fmt(row["kernel_device_ms"]),
+             plain_ms=f"{row['plain_ms']:.4f}",
+             library_ms=f"{row['library_ms']:.4f}",
+             bound_ms=f"{row['bound_ms']:.6f}")
+    return rows
+
+
+# ------------------------------------------------------------ main path --
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_main_path(db, fact, dim, device, capture=None) -> dict:
+    """Phase 4: Q1-Q7 and the orders query, cold then warm; returns the
+    warm milliseconds by query.  Each line also shows the kernel launches
+    of the cold and of the warm run.  ``capture`` (a SegCapture) is told
+    which query runs."""
+    from repro_torch.kernels import ops
+    warm = {}
+    queries = make_queries(db)
+    for name, qb in queries.items():
+        if capture is not None:
+            capture.query = name
+        ms, launched = [], []
+        for _ in range(2):                # cold, then warm
+            before = ops.launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            res = qb.collect()
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launched.append("/".join(
+                f"{v - before[k]}" for k, v in ops.launch_counts().items()))
+            check(name, res, fact, dim)
+        st = qb.stats
+        if db.epochs.n_pinned() != 0:
+            raise AssertionError(f"{name} leaked an epoch pin")
+        _say("query", name=name, cold_ms=f"{ms[0]:.3f}",
+             warm_ms=f"{ms[1]:.3f}", route=st.groupby_algorithm,
+             fused=st.fused, plan_cache=st.plan_cache,
+             rows_scanned=st.rows_scanned, oracle="match",
+             launches_cold=launched[0], launches_warm=launched[1])
+        warm[name] = ms[1]
+    return warm
+
+
+def profile_queries(db, warm) -> None:
+    """One more warm run of each query under torch.profiler: its device
+    time, the share of the untraced warm wall time the device was busy,
+    and the kernel that took most of the device time."""
+    for name, qb in make_queries(db).items():
+        dev_ms, by_name = _profile(qb.collect)
+        if dev_ms is None:
+            _say("profile", name=name, device_ms="not measured")
+            continue
+        top = max(by_name, key=by_name.get)
+        _say("profile", name=name, device_ms=f"{dev_ms:.4f}",
+             warm_ms=f"{warm[name]:.3f}",
+             busy_share=f"{dev_ms / warm[name]:.4f}",
+             top_kernel=top.replace(" ", "_")[:60],
+             top_kernel_ms=f"{by_name[top]:.4f}")
+
+
+def run_trickle(db, fact, dim, device) -> None:
+    """Phase 5: pending WOS rows force the general path, then the tuple
+    mover drains them and the fused path returns."""
+    from repro_torch.data import star_schema
+    more, _ = star_schema(N_TRICKLE, N_DIM, seed=1)
+    t = db.begin()
+    db.insert(t, "lineitem", more)
+    db.commit(t)
+    both = {c: np.concatenate([fact[c], more[c]]) for c in fact}
+    for stage in ("wos", "moved"):
+        if stage == "moved":
+            db.run_tuple_mover(force_moveout=True)
+        queries = make_queries(db)
+        for name in ("Q3", "Q5"):
+            res = queries[name].collect()
+            check(name, res, both, dim)
+            st = queries[name].stats
+            if st.fused != (stage == "moved"):
+                raise AssertionError(f"{name} after {stage}: fused="
+                                     f"{st.fused}")
+            _say("trickle", stage=stage, name=name, fused=st.fused,
+                 route=st.groupby_algorithm, oracle="match")
+
+
+# ----------------------------------------------------------------- main --
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.data import star_schema
+    from repro_torch.kernels import build, ops
+
+    device = "cuda"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _say("card", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    secs = build.build_all()
+    _say("build", kernels=",".join(build.SOURCES), seconds=f"{secs:.2f}",
+         arch="sm_90a")
+
+    t0 = time.perf_counter()
+    fact, dim = star_schema(N_FACT, N_DIM, seed=0)
+    db = build_db(fact, dim, device)
+    encs = {c: db.nodes[0].stores["lineitem_super"].containers[0]
+            .columns[c].encoding.value
+            for c in ("l_orderkey", "l_suppkey", "l_shipdate", "l_qty",
+                      "l_extprice")}
+    oenc = {c: db.nodes[0].stores["orders_super"].containers[0]
+            .columns[c].encoding.value
+            for c in ("o_orderkey", "o_custkey", "o_orderdate")}
+    _say("load", lineitem=N_FACT, orders=N_DIM,
+         seconds=f"{time.perf_counter() - t0:.1f}",
+         lineitem_encodings=json.dumps(encs, separators=(",", ":")),
+         orders_encodings=json.dumps(oenc, separators=(",", ":")))
+
+    decode_checks(db, device)
+    rows = kernel_checks(db, device)
+
+    with SegCapture() as capture:
+        ops.reset_launch_counts()
+        warm = run_main_path(db, fact, dim, device, capture)
+        launches = ops.launch_counts()
+    _say("launches", **launches)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path never launched: {missing}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    rows[1:1] = seg_preagg_rows(capture, launches["seg_preagg"], device)
+    profile_queries(db, warm)
+
+    run_trickle(db, fact, dim, device)
+    torch.cuda.synchronize()
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

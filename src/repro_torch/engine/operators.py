@@ -1,0 +1,191 @@
+"""Vectorized execution-engine operators (paper §6.1), torch-based.
+
+Mirrors ``src/repro/engine/operators.py`` for the single-node aggregate
+path: ScanResult/concat_scans, composite key packing, the dense, sort
+and RLE-direct GroupBys, and the N:1 hash join.  Every operator keeps its
+tensors on the device of its inputs and computes in the reference's
+32-bit lanes: int32 keys, counts and int sums (wrapping), f32 float sums.
+
+The dense GroupBy is the ``seg_preagg`` kernel (its contract *is*
+``groupby_dense``), the sort GroupBy sorts and then aggregates through the
+same kernel over group ids, and the RLE-direct GroupBy is the
+``rle_grouped_agg`` kernel -- on a CUDA device each launches its Hopper
+kernel, on the CPU each runs its plain PyTorch version.
+
+Not ported yet: ``scan_container``, ``groupby_prepass``, ``sort_rows``,
+``top_k`` and ``analytic_running_sum``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.encodings import EncodedColumn, Encoding, to_device
+from ..kernels import ops as kops
+
+_INT = torch.int32
+_INT_MAX = torch.iinfo(torch.int32).max
+
+
+@dataclasses.dataclass
+class ScanResult:
+    columns: Dict[str, torch.Tensor]   # flat (n,) device tensors
+    valid: torch.Tensor                # (n,) bool
+    pruned_blocks: int = 0
+    total_blocks: int = 0
+
+
+def concat_scans(results: List[ScanResult]) -> Optional[ScanResult]:
+    results = [r for r in results if r is not None]
+    if not results:
+        return None
+    cols = {k: torch.cat([r.columns[k] for r in results])
+            for k in results[0].columns}
+    valid = torch.cat([r.valid for r in results])
+    return ScanResult(cols, valid,
+                      sum(r.pruned_blocks for r in results),
+                      sum(r.total_blocks for r in results))
+
+
+# ---------------------------------------------------------------------------
+# GroupBy
+# ---------------------------------------------------------------------------
+
+# Composite group-by keys are key-packed into one dense non-negative domain
+# -- mixed-radix, last column fastest -- so every single-key path below
+# applies unchanged to multi-column grouping.
+
+def pack_keys(key_cols: Sequence[torch.Tensor], domains: Sequence[int],
+              lows: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Mix-radix pack: keys k_i in [lo_i, lo_i + d_i) -> one int32 key in
+    [0, prod(d_i)).  Values outside their domain are clipped (callers
+    guarantee domains via SMAs or a runtime min/max pass)."""
+    lows = lows or (0,) * len(domains)
+    packed = None
+    for k, d, lo in zip(key_cols, domains, lows):
+        k = torch.clamp(k.to(_INT) - lo, 0, d - 1)
+        packed = k if packed is None else packed * d + k
+    return packed
+
+
+def unpack_keys(packed: np.ndarray, domains: Sequence[int],
+                lows: Optional[Sequence[int]] = None) -> List[np.ndarray]:
+    """Host-side inverse of pack_keys over the (small) group-key output."""
+    lows = lows or (0,) * len(domains)
+    packed = np.asarray(packed).astype(np.int64)
+    out: List[np.ndarray] = []
+    for d, lo in zip(reversed(domains), reversed(lows)):
+        out.append(packed % d + lo)
+        packed = packed // d
+    out.reverse()
+    return out
+
+
+def groupby_dense(keys: torch.Tensor, valid: torch.Tensor,
+                  values: Dict[str, torch.Tensor], domain: int,
+                  aggs: Tuple[Tuple[str, str, str], ...]
+                  ) -> Dict[str, torch.Tensor]:
+    """Dense-hash GroupBy: keys are small non-negative ints (the paper's
+    'few-valued' case / dictionary-encoded), run by the ``seg_preagg``
+    kernel.  aggs: (out_name, in_col, agg_kind).  Returns per-key results
+    over [0, domain) plus 'group_count'."""
+    return kops.seg_preagg(keys, valid, values, domain, aggs)
+
+
+def groupby_sort(keys: torch.Tensor, valid: torch.Tensor,
+                 values: Dict[str, torch.Tensor], max_groups: int,
+                 aggs: Tuple[Tuple[str, str, str], ...]
+                 ) -> Dict[str, torch.Tensor]:
+    """Sort-based GroupBy for arbitrary int keys (the paper's runtime
+    fallback when the hash table would not fit): a stable sort assigns
+    each valid row its group index, then the dense GroupBy aggregates over
+    those indices.  Returns padded (group_keys, aggs, n_groups)."""
+    big = _INT_MAX
+    k = torch.where(valid, keys.to(_INT), big)
+    order = torch.argsort(k, stable=True)
+    ks = k[order]
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=k.device),
+                        ks[1:] != ks[:-1]])
+    is_new &= ks != big
+    gid = torch.cumsum(is_new, 0) - 1                 # (n,) group index
+    gid = torch.where(ks == big, max_groups - 1,
+                      torch.clamp(gid, 0, max_groups - 1))
+    uniq = torch.full((max_groups,), big, dtype=_INT, device=k.device) \
+        .scatter_reduce_(0, gid, ks, "amin")
+    # per-group aggregates: exactly groupby_dense's contract over gid
+    vsort = {c: v[order] for c, v in values.items()}
+    out = groupby_dense(gid, valid[order], vsort, max_groups, aggs)
+    out["group_keys"] = uniq
+    out["n_groups"] = is_new.sum()
+    return out
+
+
+def groupby_rle(key_col: EncodedColumn, valid_counts: np.ndarray,
+                domain: int, device) -> Dict[str, torch.Tensor]:
+    """COUNT(*) GROUP BY key directly on RLE-encoded data: each run
+    contributes (value, length) without decoding a single row -- the
+    §6.1 'operate directly on encoded data' fast path, run by the
+    ``rle_grouped_agg`` kernel (its int32 count)."""
+    assert key_col.encoding == Encoding.RLE
+    count, _, _, _ = kops.rle_grouped_agg(
+        to_device(key_col.arrays["run_values"], device),
+        to_device(key_col.arrays["run_lengths"], device), domain=domain)
+    return {"group_count": count}
+
+
+# ---------------------------------------------------------------------------
+# Join (N:1 lookup = hash join; same primitive is a merge join on sorted)
+# ---------------------------------------------------------------------------
+
+def join_lookup(build_keys: torch.Tensor, probe_keys: torch.Tensor):
+    """Returns (idx, matched): for each probe key, the position of the
+    matching build key (build keys unique, pre-sorted by caller)."""
+    dt = torch.promote_types(build_keys.dtype, probe_keys.dtype)
+    bk, pk = build_keys.to(dt), probe_keys.to(dt)
+    idx = torch.searchsorted(bk, pk)
+    idx = torch.clamp(idx, 0, bk.shape[0] - 1)
+    matched = bk[idx] == pk
+    return idx, matched
+
+
+def hash_join(build: Dict[str, torch.Tensor], build_key: str,
+              probe: Dict[str, torch.Tensor], probe_key: str,
+              probe_valid: torch.Tensor, how: str = "inner"
+              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """N:1 join: probe each fact row against the (small) build side.
+    Build side is sorted once ('building the hash table'); the probe is one
+    vectorized lookup. Returns (joined columns, valid mask)."""
+    if how not in ("inner", "left"):
+        raise ValueError(how)
+    n = probe[probe_key].shape[0]
+    dev = probe[probe_key].device
+    out = dict(probe)
+    if build[build_key].shape[0] == 0:
+        # empty build side (dim predicate filtered everything, or the
+        # dimension was truncated): no probe row can match
+        for c, v in build.items():
+            if c != build_key:
+                out[c] = torch.full((n,) + tuple(v.shape[1:]), -1,
+                                    dtype=v.dtype, device=dev)
+        matched = torch.zeros(n, dtype=torch.bool, device=dev)
+    else:
+        order = torch.argsort(build[build_key], stable=True)
+        idx, matched = join_lookup(build[build_key][order], probe[probe_key])
+        for c, v in build.items():
+            if c == build_key:
+                continue
+            joined = v[order][idx]
+            if how == "left":
+                # unmatched rows carry the NULL sentinel (-1), the engine's
+                # NULL analog, instead of an arbitrary clipped build row
+                joined = torch.where(matched, joined,
+                                     torch.tensor(-1, dtype=joined.dtype,
+                                                  device=dev))
+            out[c] = joined
+    if how == "inner":
+        return out, probe_valid & matched
+    out["_matched"] = matched
+    return out, probe_valid

@@ -1,0 +1,190 @@
+"""The port's kernels (src/repro_torch/kernels) against the reference.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version (the CUDA
+kernels themselves are held against those on the card by chip_smoke.py).
+Here the plain versions meet the reference's Pallas kernels, run in
+interpret mode as tests/test_kernels*.py run them, and the ``ref.py``
+oracles, on the same numpy inputs.  Integer outputs must be exactly
+equal; f32 sums may differ by summation order only (rtol 1e-5).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.encodings import pack_words
+from repro.engine import operators as ref_ops
+from repro.kernels import ref
+from repro.kernels.bitunpack import bitunpack_pallas
+from repro.kernels.rle_scan_agg import rle_grouped_agg as rle_pallas
+from repro.kernels.seg_preagg import seg_preagg_pallas
+from repro_torch.kernels import ops
+
+AGGS = (("n", "*", "count"), ("sq", "qty", "sum"), ("mq", "qty", "min"),
+        ("xq", "qty", "max"), ("sp", "price", "sum"),
+        ("mp", "price", "min"), ("xp", "price", "max"),
+        ("ap", "price", "avg"))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_agree(got, want, label):
+    assert set(got) == set(want), label
+    for name in want:
+        g = got[name].numpy() if isinstance(got[name], torch.Tensor) \
+            else np.asarray(got[name])
+        w = np.asarray(want[name])
+        assert g.shape == w.shape and g.dtype == w.dtype, (label, name)
+        if w.dtype.kind in "iub":
+            np.testing.assert_array_equal(g, w, err_msg=f"{label}:{name}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5,
+                                       err_msg=f"{label}:{name}")
+
+
+# ------------------------------------------------------------- bitunpack --
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_bitunpack_matches_pallas_and_oracle(width):
+    rng = np.random.default_rng(width)
+    nb, br = 3, 96
+    syms = rng.integers(0, 1 << width, (nb, br), dtype=np.uint64)
+    words = pack_words(syms.astype(np.int64), width)
+    base = rng.integers(-2**31, 2**31, nb, dtype=np.int64).astype(np.int32)
+    for b in (None, base):
+        want = np.asarray(ref.bitunpack_ref(words, width, br, b))
+        got = ops.bitunpack(_t(words.view(np.int32)), width, br,
+                            base=None if b is None else _t(b))
+        assert got.dtype == torch.int32 and got.shape == (nb, br)
+        np.testing.assert_array_equal(got.numpy(), want)
+    # interpret-mode Pallas costs ~0.5 s a call: its two kernel bodies
+    # (_kernel, _kernel_base) alternate over the widths
+    b = base if width % 2 else None
+    pallas = np.asarray(bitunpack_pallas(
+        jnp.asarray(words), width, br,
+        None if b is None else jnp.asarray(b), interpret=True))
+    got = ops.bitunpack(_t(words.view(np.int32)), width, br,
+                        base=None if b is None else _t(b))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+def test_bitunpack_rejects_bad_shapes():
+    words = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.bitunpack(words, 3, 32)          # 5 words is not 3 * groups
+    with pytest.raises(ValueError):
+        ops.bitunpack(words, 5, 64)          # one group holds 32 symbols
+    with pytest.raises(ValueError):
+        ops.bitunpack(words, 33, 32)
+
+
+# ------------------------------------------------------------ seg_preagg --
+
+def _mkdata(rng, n, domain, key_lo=0, p_valid=0.8):
+    keys = rng.integers(key_lo, domain, n).astype(np.int32)
+    valid = rng.random(n) < p_valid
+    values = {"qty": rng.integers(-50, 50, n).astype(np.int32),
+              "price": np.round(rng.normal(100, 10, n), 2)
+              .astype(np.float32)}
+    return keys, valid, values
+
+
+def _both(keys, valid, values, domain, aggs=AGGS):
+    got = ops.seg_preagg(_t(keys), _t(valid),
+                         {c: _t(v) for c, v in values.items()}, domain, aggs)
+    jv = {c: jnp.asarray(v) for c, v in values.items()}
+    return got, jnp.asarray(keys), jnp.asarray(valid), jv
+
+
+@pytest.mark.parametrize("n,domain", [(1000, 37), (777, 256), (77, 1),
+                                      (513, 1024)])
+def test_seg_preagg_matches_pallas_and_oracle(n, domain):
+    rng = np.random.default_rng(n + domain)
+    keys, valid, values = _mkdata(rng, n, domain)
+    got, jk, jm, jv = _both(keys, valid, values, domain)
+    kernel_aggs = tuple(a for a in AGGS if a[2] != "avg")
+    pallas = seg_preagg_pallas(jk, jm, jv, domain, kernel_aggs,
+                               interpret=True)
+    _assert_agree({k: got[k] for k in pallas}, pallas, "pallas")
+    _assert_agree(got, ref.seg_preagg_ref(jk, jm, jv, domain, AGGS), "ref")
+
+
+@pytest.mark.parametrize("domain", [5_000, 150_000])
+def test_seg_preagg_wide_domains_match_groupby_dense(domain):
+    rng = np.random.default_rng(domain)
+    keys, valid, values = _mkdata(rng, 20_000, domain)
+    got, jk, jm, jv = _both(keys, valid, values, domain)
+    _assert_agree(got, ref_ops.groupby_dense(jk, jm, jv, domain, AGGS),
+                  "groupby_dense")
+
+
+def test_seg_preagg_negative_keys_merge_into_group_zero():
+    rng = np.random.default_rng(5)
+    keys, valid, values = _mkdata(rng, 600, 40, key_lo=-10)
+    got, jk, jm, jv = _both(keys, valid, values, 40)
+    _assert_agree(got, ref_ops.groupby_dense(jk, jm, jv, 40, AGGS), "neg")
+    assert int(got["n"][0]) == int((valid & (keys <= 0)).sum())
+
+
+def test_seg_preagg_all_rows_invalid_keeps_sentinels():
+    rng = np.random.default_rng(6)
+    keys, valid, values = _mkdata(rng, 300, 16, p_valid=0.0)
+    got, jk, jm, jv = _both(keys, valid, values, 16)
+    _assert_agree(got, ref.seg_preagg_ref(jk, jm, jv, 16, AGGS), "invalid")
+    assert int(got["group_count"].sum()) == 0
+    assert int(got["mq"][0]) == np.iinfo(np.int32).max
+    assert float(got["xp"][0]) == -np.inf
+
+
+def test_seg_preagg_int32_sums_wrap():
+    n = 64
+    keys = np.zeros(n, np.int32)
+    valid = np.ones(n, bool)
+    values = {"qty": np.full(n, 2**30, np.int32),
+              "price": np.ones(n, np.float32)}
+    got, jk, jm, jv = _both(keys, valid, values, 1)
+    _assert_agree(got, ref_ops.groupby_dense(jk, jm, jv, 1, AGGS), "wrap")
+    assert int(got["sq"][0]) == 0            # 64 * 2^30 == 2^36 wraps to 0
+
+
+# ------------------------------------------------------- rle_grouped_agg --
+
+@pytest.mark.parametrize("nb,R,domain,bounded",
+                         [(1, 128, 16, False), (3, 128, 50, True),
+                          (2, 200, 300, False)])
+def test_rle_grouped_agg_matches_pallas_and_oracle(nb, R, domain, bounded):
+    rng = np.random.default_rng(nb * R + domain)
+    # keys partly OUT of [0, domain): must be dropped, not clipped in
+    rv = rng.integers(0, domain + 3, (nb, R)).astype(np.int32)
+    rl = rng.integers(0, 20, (nb, R)).astype(np.int32)
+    val = rng.normal(size=(nb, R)).astype(np.float32)
+    lo, hi = (2.0, float(domain) - 5) if bounded else (-3.0e38, 3.0e38)
+    count, total, mn, mx = ops.rle_grouped_agg(
+        _t(rv), _t(rl), _t(val), domain=domain, lo=lo, hi=hi)
+    assert count.dtype == torch.int32
+    args = (jnp.asarray(rv), jnp.asarray(rl), jnp.asarray(val))
+    want = np.asarray(ref.rle_grouped_agg_ref(*args, domain, lo, hi))
+    pallas = np.asarray(rle_pallas(*args, domain=domain, lo=lo, hi=hi,
+                                   interpret=True))
+    for w in (want, pallas):
+        np.testing.assert_array_equal(count.numpy(), w[0].astype(np.int64))
+        np.testing.assert_allclose(total.numpy(), w[1], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(mn.numpy(), w[2])
+        np.testing.assert_array_equal(mx.numpy(), w[3])
+
+
+def test_rle_grouped_agg_default_values_is_key():
+    rng = np.random.default_rng(9)
+    rv = rng.integers(0, 8, (2, 128)).astype(np.int32)
+    rl = rng.integers(0, 5, (2, 128)).astype(np.int32)
+    count, total, _, _ = ops.rle_grouped_agg(_t(rv), _t(rl), domain=8)
+    want = np.asarray(ref.rle_grouped_agg_ref(
+        jnp.asarray(rv), jnp.asarray(rl), jnp.asarray(rv), 8,
+        -3.0e38, 3.0e38))
+    np.testing.assert_array_equal(count.numpy(), want[0].astype(np.int64))
+    np.testing.assert_allclose(total.numpy(), want[1], rtol=1e-5)
+    for k in range(8):
+        assert int(count[k]) == rl[rv == k].sum()
