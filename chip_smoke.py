@@ -32,7 +32,26 @@ Phases, one line each (any failure raises and the script exits non-zero):
    exact, f32 sums within rtol 1e-5 (atomics reorder the sums).  Then
    one more warm run of each query under torch.profiler gives its
    device time and busy share;
-5. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
+5. the kernel entry point ``repro_torch.kernels.ops`` at full size on
+   the same database (the reference reaches these four kernels only
+   through its ``kernels.ops``): ``rle_filter_agg`` over the RLE
+   l_shipdate runs of every lineitem container for Q1's [180, 180] and
+   Q3's [61, 119] (counts, sums and max, tail padding subtracted, equal to
+   numpy's); ``bitunpack`` then ``delta_decode`` over the DELTA_RANGE
+   o_orderkey of every orders container on node 0 (bit for bit equal to
+   the host decode); ``onehot_groupby`` on the keys and values the main
+   path gave ``seg_preagg`` for Q3 and Qorders (invalid rows keyed -1;
+   per-block partials summed equal to ``seg_preagg``'s counts exactly and
+   its sums within rtol 1e-5); ``semijoin_probe`` of every lineitem
+   container's decoded l_orderkey against the o_orderkeys of the orders
+   with o_orderdate 0, the build side cut into chunks of 4096 and OR-ed
+   (equal to ``np.isin``).  The launch counters are zeroed before and
+   read after this run: each of the four must have launched.  Each
+   kernel's outputs are also held against its plain version on the card
+   (ints and counts exact, f32 sums within rtol 1e-5), and one float
+   ``delta_decode`` case at (123, 4096) within rtol 1e-5 of the running
+   magnitude;
+6. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
    general path, then again after ``run_tuple_mover(force_moveout=True)``,
    all against the oracle.
 
@@ -41,7 +60,8 @@ row per kernel and, for seg_preagg, per main-path shape (``ms``,
 ``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
 ``kernel_device_ms``: the kernel alone in a torch.profiler trace;
 ``bound_ms``: the bytes each call must move on its inputs over the
-H100's 3.35 TB/s; ``launches``: the main-path run's), and
+H100's 3.35 TB/s; ``launches``: the run of the kernel's path -- the
+main path, or phase 5 for the four kernels only ``ops`` reaches), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
@@ -56,6 +76,10 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
+MAIN_KERNELS = ("bitunpack", "seg_preagg", "rle_grouped_agg")
+API_KERNELS = ("rle_filter_agg", "onehot_groupby", "semijoin_probe",
+               "delta_decode")
+PREPASS_BLOCK = 4096            # rows per onehot_groupby block row
 N_FACT, N_DIM = 6_000_000, 1_500_000
 N_TRICKLE = 10_000
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -492,6 +516,310 @@ def seg_preagg_rows(capture, launched: int, device):
     return rows
 
 
+# ------------------------------------------------- the kernel entry point --
+
+def _containers(db, table, nodes=None):
+    nodes = range(len(db.nodes)) if nodes is None else nodes
+    return [c for n in nodes for c in db.nodes[n].stores[table].containers]
+
+
+def _api_row(name, source, replaces, fn, plain, library, kernel, nbytes,
+             shape, **extra):
+    """One JSON row of a phase-5 kernel, timed on one call's inputs."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces,
+            "ms": _time_ms(fn), "plain_ms": _time_ms(plain, reps=5),
+            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None if library is None else _time_ms(library),
+            "kernel_device_ms": _kernel_device_ms(fn, kernel),
+            "shape": shape, **extra}
+
+
+def _say_row(row, **kw) -> None:
+    _say("kernel", name=row["name"], launches=row["launches"], **kw,
+         ms=f"{row['ms']:.4f}",
+         kernel_device_ms=_fmt(row["kernel_device_ms"]),
+         plain_ms=f"{row['plain_ms']:.4f}",
+         library_ms=_fmt(row["library_ms"]),
+         bound_ms=f"{row['bound_ms']:.6f}")
+
+
+def _prepass_inputs(keys, valid, values, aggs):
+    """A main-path ``seg_preagg`` call as ``onehot_groupby`` takes it:
+    (nb, 4096) keys with invalid and tail rows keyed -1, and the values
+    of the call's summed column (or ones for a count)."""
+    import torch
+    n = keys.numel()
+    pad = (-n) % PREPASS_BLOCK
+    k = torch.where(valid, keys.to(torch.int32), -1)
+    summed = [c for _, c, kind in aggs if kind in ("sum", "avg")]
+    v = values[summed[0]] if summed else torch.ones_like(k)
+    k = torch.cat([k, k.new_full((pad,), -1)])
+    v = torch.cat([v, v.new_zeros(pad)])
+    return (k.reshape(-1, PREPASS_BLOCK), v.reshape(-1, PREPASS_BLOCK),
+            summed[0] if summed else None)
+
+
+def kernel_api_phase(db, fact, dim, capture, device):
+    """Phase 5: the four kernels only ``kernels.ops`` reaches, driven at
+    full size over the database's own containers and the main path's own
+    ``seg_preagg`` inputs, each held against numpy and against its plain
+    version on the card.  Returns their JSON rows."""
+    import torch
+    from repro_torch.core.encodings import decode_torch, to_device
+    from repro_torch.kernels import ops
+    li = _containers(db, "lineitem_super")
+    orders = _containers(db, "orders_super", nodes=(0,))
+    intervals = {"Q1": (180.0, 180.0), "Q3": (61.0, 119.0)}
+    runs = [(to_device(c.columns["l_shipdate"].arrays["run_values"], device),
+             to_device(c.columns["l_shipdate"].arrays["run_lengths"], device))
+            for c in li]
+    dr = []
+    for c in orders:
+        col = c.columns["o_orderkey"]
+        if col.encoding.value != "delta_range" or \
+                "deltas_packed" not in col.arrays:
+            raise AssertionError(f"o_orderkey is {col.encoding}, expected "
+                                 f"a packed DELTA_RANGE stream")
+        a = {k: to_device(v, device) for k, v in col.arrays.items()}
+        dr.append((col, a))
+    prepass = {}
+    for (q, _, domain, aggs), (_, (keys, valid, values)) in \
+            capture.shapes.items():
+        if q in ("Q3", "Qorders"):
+            valid = valid.to(torch.bool)
+            k2, v2, summed = _prepass_inputs(keys, valid, values, aggs)
+            prepass[q] = {"domain": domain, "aggs": aggs, "keys": keys,
+                          "valid": valid, "values": values, "k2": k2,
+                          "v2": v2, "summed": summed}
+    if set(prepass) != {"Q3", "Qorders"}:
+        raise AssertionError(f"seg_preagg inputs of Q3 and Qorders not "
+                             f"captured: {sorted(prepass)}")
+    build_host = dim["o_orderkey"][dim["o_orderdate"] == 0].astype(np.int32)
+    build_keys = torch.as_tensor(build_host, device=device)
+    chunks = [build_keys[s:s + 4096]
+              for s in range(0, build_keys.numel(), 4096)]
+    probe = [decode_torch(c.columns["l_orderkey"], device) for c in li]
+    torch.cuda.synchronize()
+
+    # ---- the path: every launch below is counted
+    ops.reset_launch_counts()
+    filt = {q: [ops.rle_filter_agg(rv, rl, lo=lo, hi=hi) for rv, rl in runs]
+            for q, (lo, hi) in intervals.items()}
+    decoded = []
+    for col, a in dr:
+        deltas = ops.bitunpack(a["deltas_packed"], col.widths["deltas_packed"],
+                               col.block_rows, base=a["delta_min"])
+        decoded.append((deltas, ops.delta_decode(a["first"][:, None],
+                                                 deltas)))
+    parts, onehot_launches = {}, {}
+    for q, p in prepass.items():
+        before = ops.launch_counts()["onehot_groupby"]
+        parts[q] = ops.onehot_groupby(p["k2"], p["v2"], domain=p["domain"])
+        onehot_launches[q] = ops.launch_counts()["onehot_groupby"] - before
+    members = []
+    for keys in probe:
+        hit = ops.semijoin_probe(keys, chunks[0])
+        for ch in chunks[1:]:
+            hit |= ops.semijoin_probe(keys, ch)
+        members.append(hit)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _say("launches", path="kernels.ops", bitunpack=launches["bitunpack"],
+         **{k: launches[k] for k in API_KERNELS})
+    missing = [k for k in API_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels.ops phase never launched: {missing}")
+    if sum(onehot_launches.values()) != launches["onehot_groupby"]:
+        raise AssertionError(f"onehot_groupby launches by query "
+                             f"{onehot_launches} do not add up to "
+                             f"{launches['onehot_groupby']}")
+    rows = []
+    errs = {k: 0.0 for k in API_KERNELS}
+
+    def worst(name, got, want):
+        errs[name] = max(errs[name], float(
+            (got.double() - want.double()).abs().max()))
+
+    # ---- rle_filter_agg: numpy's count, sum and max of l_shipdate
+    sd = fact["l_shipdate"]
+    for q, (lo, hi) in intervals.items():
+        cnt = tot = 0
+        mx = -np.inf
+        for c, (rv, rl), got in zip(li, runs, filt[q]):
+            want = ops.rle_filter_agg_plain(rv, rl, lo=lo, hi=hi)
+            # -inf in the max of a block with no passing run on both sides
+            worst("rle_filter_agg", torch.nan_to_num(got),
+                  torch.nan_to_num(want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"rle_filter_agg {q} differs from its "
+                                     f"plain version")
+            g = got.cpu().numpy().astype(np.float64)
+            cnt += g[:, 0].sum()
+            tot += g[:, 1].sum()
+            mx = max(mx, g[:, 2].max())
+            # the tail padding repeats the last run's value
+            col = c.columns["l_shipdate"]
+            pad = col.n_blocks * col.block_rows - c.n_rows
+            host_rl = col.arrays["run_lengths"].reshape(-1)
+            last = col.arrays["run_values"].reshape(-1)[
+                np.flatnonzero(host_rl)[-1]]
+            if pad and lo <= last <= hi:
+                cnt -= pad
+                tot -= pad * float(last)
+        m = (sd >= lo) & (sd <= hi)
+        if (cnt, tot, mx) != (m.sum(), sd[m].sum(), sd[m].max()):
+            raise AssertionError(f"rle_filter_agg {q}: ({cnt}, {tot}, {mx})"
+                                 f" against numpy ({m.sum()}, {sd[m].sum()},"
+                                 f" {sd[m].max()})")
+        _say("check", kernel="rle_filter_agg", query=q, lo=lo, hi=hi,
+             rows=int(cnt), sum=int(tot), max=int(mx), numpy="match",
+             plain="match")
+    rv, rl = runs[0]
+    lo, hi = intervals["Q3"]
+    row = _api_row(
+        "rle_filter_agg", "rle_filter_agg.cu",
+        "src/repro/kernels/rle_scan_agg.py:56",
+        lambda: ops.rle_filter_agg(rv, rl, lo=lo, hi=hi),
+        lambda: ops.rle_filter_agg_plain(rv, rl, lo=lo, hi=hi), None,
+        "rle_filter_agg_kernel", rv.numel() * 8 + rv.shape[0] * 12,
+        f"runs {tuple(rv.shape)} [61, 119]; launch-bound",
+        launches=launches["rle_filter_agg"],
+        max_abs_err=errs["rle_filter_agg"],
+        library_note="no single PyTorch call computes the masked count, "
+                     "sum and max per block")
+    rows.append(row)
+    _say_row(row, containers=len(li), exact=True)
+
+    # ---- delta_decode: bit for bit the host decode of o_orderkey
+    for (col, a), (deltas, got) in zip(dr, decoded):
+        host = col.decode_blocks().astype(np.float32)
+        want = ops.delta_decode_plain(a["first"][:, None], deltas)
+        worst("delta_decode", got, want)
+        if not (torch.equal(got, want)
+                and np.array_equal(got.cpu().numpy().view(np.uint32),
+                                   host.view(np.uint32))):
+            raise AssertionError("delta_decode of o_orderkey: not bit-exact")
+    rng = np.random.default_rng(2)
+    nb, br = probe[0].shape             # one lineitem container's blocks
+    ffirst = torch.as_tensor(rng.normal(0, 1e3, (nb, 1)).astype(np.float32),
+                             device=device)
+    fdeltas = torch.as_tensor(rng.normal(0, 1, (nb, br)).astype(np.float32),
+                              device=device)
+    got = ops.delta_decode(ffirst, fdeltas)
+    want = ops.delta_decode_plain(ffirst, fdeltas)
+    magnitude = ffirst.abs() + torch.cumsum(fdeltas.abs(), dim=1) \
+        + fdeltas[:, :1].abs()
+    ferr = float(((got - want).abs() / magnitude).max())
+    if ferr > 1e-5:
+        raise AssertionError(f"delta_decode float case: {ferr:.3g} of the "
+                             f"running magnitude")
+    _say("check", kernel="delta_decode", containers=len(dr),
+         o_orderkey="bit_exact", float_case=f"({nb},{br})",
+         float_err_of_magnitude=f"{ferr:.3g}")
+    col, a = dr[0]
+    deltas = decoded[0][0]
+    first = a["first"][:, None]
+    row = _api_row(
+        "delta_decode", "delta_decode.cu",
+        "src/repro/kernels/delta_decode.py:26",
+        lambda: ops.delta_decode(first, deltas),
+        lambda: ops.delta_decode_plain(first, deltas),
+        lambda: torch.cumsum(deltas, dim=1, dtype=torch.float32),
+        "delta_decode_kernel", deltas.numel() * 8 + first.numel() * 4,
+        f"o_orderkey deltas {tuple(deltas.shape)} int32",
+        launches=launches["delta_decode"], max_abs_err=errs["delta_decode"],
+        float_case_err_of_magnitude=ferr)
+    rows.append(row)
+    _say_row(row, bit_exact=True)
+
+    # ---- onehot_groupby: the partials add up to seg_preagg's answer
+    for q, p in prepass.items():
+        domain, aggs, k2, v2 = p["domain"], p["aggs"], p["k2"], p["v2"]
+        got = parts[q]
+        want = ops.onehot_groupby_plain(k2, v2, domain=domain)
+        err = float((got - want).abs().max())
+        if not (torch.equal(got[..., 0], want[..., 0]) and torch.allclose(
+                got[..., 1], want[..., 1], rtol=1e-5, atol=0)):
+            raise AssertionError(f"onehot_groupby {q} differs from its "
+                                 f"plain version")
+        seg = ops.seg_preagg(p["keys"], p["valid"], p["values"], domain,
+                             aggs)
+        cnt = got[..., 0].double().sum(0)
+        if not torch.equal(cnt.to(torch.int64),
+                           seg["group_count"].to(torch.int64)):
+            raise AssertionError(f"onehot_groupby {q}: counts differ from "
+                                 f"seg_preagg's")
+        if p["summed"] is not None:
+            name = next(n for n, c, _ in aggs if c == p["summed"])
+            s = got[..., 1].double().sum(0)
+            ref = seg[name].double()
+            if not torch.allclose(s, ref, rtol=1e-5, atol=0):
+                raise AssertionError(f"onehot_groupby {q}: sums differ from "
+                                     f"seg_preagg's")
+        nbk = k2.shape[0]
+        ok = (k2 >= 0) & (k2 < domain)
+        flat = (torch.arange(nbk, device=device)[:, None] * domain
+                + torch.where(ok, k2, 0).long()).reshape(-1)
+        w = torch.stack([ok.float(), torch.where(ok, v2.float(), 0.0)],
+                        dim=-1).reshape(-1, 2)
+        # the cross-block combine that seg_preagg's single table includes
+        combine = got.sum
+        combine_device_ms, _ = _profile(lambda: combine(0), reps=20)
+        row = _api_row(
+            "onehot_groupby", "onehot_groupby.cu",
+            "src/repro/kernels/hash_groupby.py:39",
+            lambda: ops.onehot_groupby(k2, v2, domain=domain),
+            lambda: ops.onehot_groupby_plain(k2, v2, domain=domain),
+            lambda: torch.zeros(nbk * domain, 2, device=device)
+            .index_add_(0, flat, w),
+            "onehot_groupby_kernel",
+            k2.numel() * 8 + nbk * domain * 2 * 4,
+            f"{q}: keys {tuple(k2.shape)} domain={domain} "
+            f"valid={int(p['valid'].sum())}",
+            launches=onehot_launches[q], max_abs_err=err, query=q,
+            combine_ms=_time_ms(lambda: combine(0)),
+            combine_device_ms=combine_device_ms)
+        rows.append(row)
+        _say_row(row, query=q, counts_equal_seg_preagg=True,
+                 sum_max_abs_err=f"{err:.3g}")
+
+    # ---- semijoin_probe: np.isin, exactly
+    for c, keys, got in zip(li, probe, members):
+        host = c.columns["l_orderkey"].decode_blocks()
+        want = ops.semijoin_probe_plain(keys, chunks[0])
+        for ch in chunks[1:]:
+            want |= ops.semijoin_probe_plain(keys, ch)
+        worst("semijoin_probe", got, want)
+        if not (torch.equal(got, want) and np.array_equal(
+                got.cpu().numpy(), np.isin(host, build_host))):
+            raise AssertionError("semijoin_probe differs from np.isin")
+    hits = sum(int(m.sum()) for m in members)
+    _say("check", kernel="semijoin_probe", containers=len(li),
+         build=build_keys.numel(), chunks=len(chunks), members=hits,
+         np_isin="match", plain="match")
+    keys = probe[0]
+    ch = chunks[0]
+    padded = torch.cat([ch, ch.new_full(((-ch.numel()) % 128,), -1)])
+    row = _api_row(
+        "semijoin_probe", "semijoin_probe.cu",
+        "src/repro/kernels/sip_probe.py:38",
+        lambda: ops.semijoin_probe(keys, ch),
+        lambda: ops.semijoin_probe_plain(keys, ch),
+        lambda: torch.isin(keys, padded),
+        "semijoin_probe_kernel",
+        keys.numel() * 5 + padded.numel() * 4,
+        f"keys {tuple(keys.shape)} build {padded.numel()}",
+        launches=launches["semijoin_probe"],
+        max_abs_err=errs["semijoin_probe"],
+        bound_note="bytes: membership needs no B x S compares (a sorted "
+                   "or hashed build side answers in O(1)-O(log S) each)")
+    rows.append(row)
+    _say_row(row, exact=True)
+    return rows
+
+
 # ------------------------------------------------------------ main path --
 
 def _sync(device) -> None:
@@ -519,8 +847,9 @@ def run_main_path(db, fact, dim, device, capture=None) -> dict:
             res = qb.collect()
             _sync(device)
             ms.append((time.perf_counter() - t0) * 1e3)
-            launched.append("/".join(
-                f"{v - before[k]}" for k, v in ops.launch_counts().items()))
+            after = ops.launch_counts()
+            launched.append("/".join(f"{after[k] - before[k]}"
+                                     for k in MAIN_KERNELS))
             check(name, res, fact, dim)
         st = qb.stats
         if db.epochs.n_pinned() != 0:
@@ -622,14 +951,32 @@ def main() -> int:
         ops.reset_launch_counts()
         warm = run_main_path(db, fact, dim, device, capture)
         launches = ops.launch_counts()
-    _say("launches", **launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    _say("launches", path="main", **{k: launches[k] for k in MAIN_KERNELS})
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows[1:1] = seg_preagg_rows(capture, launches["seg_preagg"], device)
     profile_queries(db, warm)
+
+    api_rows = kernel_api_phase(db, fact, dim, capture, device)
+    for row in api_rows:
+        if row["name"] == "onehot_groupby":
+            seg = next(r for r in rows if r["name"] == "seg_preagg"
+                       and r["shape"].startswith(row["query"] + ":"))
+            # count and sum partials plus their combine, against
+            # seg_preagg's one table of count, sum, min and max
+            dev = (None if None in (row["kernel_device_ms"],
+                                    row["combine_device_ms"])
+                   else row["kernel_device_ms"] + row["combine_device_ms"])
+            _say("compare", query=row["query"],
+                 onehot_plus_combine_device_ms=_fmt(dev),
+                 seg_preagg_device_ms=_fmt(seg["kernel_device_ms"]),
+                 onehot_plus_combine_ms=f"{row['ms'] + row['combine_ms']:.4f}",
+                 seg_preagg_ms=f"{seg['ms']:.4f}",
+                 index_add_ms=f"{seg['library_ms']:.4f}")
+    rows += api_rows
 
     run_trickle(db, fact, dim, device)
     torch.cuda.synchronize()

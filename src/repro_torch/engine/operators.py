@@ -1,30 +1,32 @@
 """Vectorized execution-engine operators (paper §6.1), torch-based.
 
-Mirrors ``src/repro/engine/operators.py`` for the single-node aggregate
-path: ScanResult/concat_scans, composite key packing, the dense, sort
-and RLE-direct GroupBys, and the N:1 hash join.  Every operator keeps its
-tensors on the device of its inputs and computes in the reference's
-32-bit lanes: int32 keys, counts and int sums (wrapping), f32 float sums.
+Mirrors ``src/repro/engine/operators.py``: the container scan
+(SMA pruning, decode, predicate and SIP masks), ScanResult/concat_scans,
+composite key packing, the dense, sort, RLE-direct and prepass GroupBys,
+the N:1 hash join, and Sort, TopK and the running-sum analytic.  Every
+operator keeps its tensors on the device of its inputs and computes in
+the reference's 32-bit lanes: int32 keys, counts and int sums (wrapping),
+f32 float sums.
 
 The dense GroupBy is the ``seg_preagg`` kernel (its contract *is*
 ``groupby_dense``), the sort GroupBy sorts and then aggregates through the
 same kernel over group ids, and the RLE-direct GroupBy is the
 ``rle_grouped_agg`` kernel -- on a CUDA device each launches its Hopper
-kernel, on the CPU each runs its plain PyTorch version.
-
-Not ported yet: ``scan_container``, ``groupby_prepass``, ``sort_rows``,
-``top_k`` and ``analytic_running_sum``.
+kernel, on the CPU each runs its plain PyTorch version.  The prepass
+GroupBy stays on ``groupby_dense``, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.encodings import EncodedColumn, Encoding, to_device
+from ..core.encodings import EncodedColumn, Encoding, decode_torch, to_device
+from ..core.storage import ROSContainer
 from ..kernels import ops as kops
+from .expr import Expr
 
 _INT = torch.int32
 _INT_MAX = torch.iinfo(torch.int32).max
@@ -36,6 +38,48 @@ class ScanResult:
     valid: torch.Tensor                # (n,) bool
     pruned_blocks: int = 0
     total_blocks: int = 0
+
+
+def scan_container(c: ROSContainer, columns: Sequence[str],
+                   predicate: Optional[Expr] = None,
+                   deleted: Optional[np.ndarray] = None,
+                   sip: Optional[Callable] = None,
+                   device="cuda") -> Optional[ScanResult]:
+    """Scan one ROS container: SMA-prune blocks, decode survivors on
+    ``device``, apply the predicate (and any SIP filter) as a mask.
+    ``deleted`` is a positional bool mask over the container's rows."""
+    need = set(columns) | (predicate.columns() if predicate else set())
+    first = c.columns[next(iter(need))]
+    nb, br = first.n_blocks, first.block_rows
+
+    # --- container/block pruning from predicate bounds (paper §3.5) ---
+    keep = np.ones(nb, dtype=bool)
+    if predicate is not None:
+        for colname, (lo, hi) in predicate.bounds().items():
+            if colname in c.smas:
+                keep &= c.smas[colname].prune_blocks(lo, hi)
+    if not keep.any():
+        return None
+    kept_idx = np.flatnonzero(keep)
+    kept = torch.as_tensor(kept_idx, device=device)
+
+    cols = {name: decode_torch(c.columns[name], device)[kept].reshape(-1)
+            for name in need}
+    # row validity: inside n_rows, not deleted
+    counts = c.smas[next(iter(need))].counts
+    valid_np = np.arange(br)[None, :] < counts[kept_idx][:, None]
+    if deleted is not None:
+        # deleted is positional over the container; spread over padded blocks
+        flat = np.zeros(nb * br, bool)
+        flat[np.flatnonzero(deleted)] = True
+        valid_np &= ~flat.reshape(nb, br)[kept_idx]
+    valid = torch.as_tensor(valid_np.reshape(-1), device=device)
+    if predicate is not None:
+        valid = valid & predicate(cols).to(torch.bool)
+    if sip is not None:
+        valid = valid & sip(cols)
+    return ScanResult({k: v for k, v in cols.items() if k in columns},
+                      valid, int(nb - kept_idx.size), int(nb))
 
 
 def concat_scans(results: List[ScanResult]) -> Optional[ScanResult]:
@@ -136,6 +180,55 @@ def groupby_rle(key_col: EncodedColumn, valid_counts: np.ndarray,
     return {"group_count": count}
 
 
+def groupby_prepass(keys: torch.Tensor, valid: torch.Tensor,
+                    values: Dict[str, torch.Tensor], domain: int,
+                    aggs: Tuple[Tuple[str, str, str], ...],
+                    block: int = 4096) -> Dict[str, torch.Tensor]:
+    """Two-stage GroupBy mirroring the paper's prepass operators: partial
+    per-block aggregation (the 'cache-sized hash table'), then a final
+    combine; numerically ``groupby_dense`` up to the f32 summation order.
+
+    The per-block partials are one ``groupby_dense`` over the keys of
+    block b, clipped into [0, domain) as ``groupby_dense`` clips them,
+    moved to ``b * domain + key``: the reference's vmap written out."""
+    n = keys.shape[0]
+    nb = max(1, -(-n // block))
+    if nb * domain >= 2**31:
+        raise ValueError(f"groupby_prepass: {nb} blocks x domain {domain} "
+                         f"exceed the int32 key lane")
+    pad = nb * block - n
+    dev = keys.device
+    k = torch.clamp(keys.to(_INT), 0, domain - 1)
+    kp = torch.cat([k, k.new_zeros(pad)])
+    vp = torch.cat([valid.to(torch.bool),
+                    torch.zeros(pad, dtype=torch.bool, device=dev)])
+    vals = {c: torch.cat([v, v.new_zeros(pad)]) for c, v in values.items()}
+    offset = torch.arange(nb, dtype=_INT, device=dev).repeat_interleave(block)
+
+    # avg does not distribute over blocks: aggregate partial SUMs instead
+    # and divide by the combined counts at the end.
+    part_aggs = tuple((name, col_, "sum" if agg == "avg" else agg)
+                      for name, col_, agg in aggs)
+    partials = groupby_dense(offset * domain + kp, vp, vals, nb * domain,
+                             part_aggs)
+    kinds = {name: agg for name, _, agg in part_aggs}   # group_count: sum
+    out = {}
+    for name, v in partials.items():
+        v = v.reshape(nb, domain)
+        kind = kinds.get(name, "sum")
+        if kind in ("sum", "count"):
+            # int32 partials sum in int32 (wrapping), as the reference's
+            out[name] = v.sum(dim=0, dtype=v.dtype)
+        elif kind == "min":
+            out[name] = v.amin(dim=0)
+        else:
+            out[name] = v.amax(dim=0)
+    for name, _, agg in aggs:
+        if agg == "avg":
+            out[name] = out[name] / torch.clamp(out["group_count"], min=1)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Join (N:1 lookup = hash join; same primitive is a merge join on sorted)
 # ---------------------------------------------------------------------------
@@ -189,3 +282,49 @@ def hash_join(build: Dict[str, torch.Tensor], build_key: str,
         return out, probe_valid & matched
     out["_matched"] = matched
     return out, probe_valid
+
+
+# ---------------------------------------------------------------------------
+# Sort / TopK / Analytic
+# ---------------------------------------------------------------------------
+
+def sort_rows(cols: Dict[str, torch.Tensor], valid: torch.Tensor,
+              by: Sequence[str], descending: bool = False):
+    """Rows ordered by ``by[0]`` (stable; invalid rows last).  The key is
+    f32, as the reference's 32-bit lanes make it: integer keys from 2^24
+    up may tie and then keep their input order."""
+    key = cols[by[0]].to(torch.float32)
+    big = float("-inf") if descending else float("inf")
+    key = torch.where(valid, key, big)
+    order = torch.argsort(-key if descending else key, stable=True)
+    return {c: v[order] for c, v in cols.items()}, valid[order]
+
+
+def top_k(cols: Dict[str, torch.Tensor], valid: torch.Tensor, by: str,
+          k: int) -> Dict[str, torch.Tensor]:
+    """The ``k`` rows of largest ``by`` (f32), the lower index first among
+    ties, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
+    order among ties, so a stable descending sort stands in)."""
+    key = torch.where(valid, cols[by].to(torch.float32), float("-inf"))
+    idx = torch.argsort(key, descending=True, stable=True)[:k]
+    return {c: v[idx] for c, v in cols.items()}
+
+
+def analytic_running_sum(values: torch.Tensor,
+                         partition_ids: torch.Tensor) -> torch.Tensor:
+    """SQL-99 windowed SUM() OVER (PARTITION BY p ORDER BY input order):
+    segmented cumulative sum (input pre-sorted by partition), in the
+    32-bit lanes: int32 (wrapping) or f32."""
+    v = values.to(torch.float32 if values.is_floating_point() else _INT)
+    n = v.shape[0]
+    if n == 0:
+        return v
+    # torch.cumsum of int32 widens to int64 unless told the dtype
+    csum = torch.cumsum(v, 0, dtype=v.dtype)
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=v.device),
+                        partition_ids[1:] != partition_ids[:-1]])
+    gid = torch.cumsum(is_new, 0) - 1
+    # each group has exactly one start; record csum-before-start per group
+    base_per_gid = torch.zeros(n, dtype=v.dtype, device=v.device) \
+        .index_add_(0, gid, torch.where(is_new, csum - v, 0))
+    return csum - base_per_gid[gid]

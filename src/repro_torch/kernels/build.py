@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("bitunpack", "seg_preagg", "rle_grouped_agg")
+SOURCES = ("bitunpack", "seg_preagg", "rle_grouped_agg", "rle_filter_agg",
+           "onehot_groupby", "semijoin_probe", "delta_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -128,3 +129,14 @@ def require_cuda(name: str, *tensors, dtypes: Optional[tuple] = None) -> None:
         if dtypes is not None and t.dtype != dtypes[i]:
             raise TypeError(f"{name}: argument {i} is {t.dtype}, "
                             f"expected {dtypes[i]}")
+
+
+def int32_or_f32(t):
+    """``t`` as a kernel that reads int32 or f32 lanes takes it: those two
+    dtypes pass unchanged, any other is cast to f32, as the reference casts
+    before it computes.  Returns (tensor, 1 if f32 else 0)."""
+    import torch
+
+    if t.dtype not in (torch.int32, torch.float32):
+        t = t.to(torch.float32)
+    return t.contiguous(), int(t.dtype == torch.float32)

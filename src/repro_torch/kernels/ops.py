@@ -5,37 +5,56 @@ tensors a caller hands over, never by a flag: a CUDA tensor launches the
 hand-written Hopper kernel (built from ``csrc/`` at first use, see
 kernels/build.py) or raises, a CPU tensor takes the kernel's plain
 PyTorch version.  Each wrapper counts its kernel launches, so a run can
-show that the main path went through the kernels.
+show that a path went through the kernels.
 
-Ported so far: ``bitunpack``, ``seg_preagg`` (the engine's dense GROUP BY)
-and ``rle_grouped_agg``.  ``rle_filter_agg``, ``onehot_groupby``,
-``semijoin_probe``, ``delta_decode`` and ``flash_attention`` are not.
+Ported: ``bitunpack``, ``seg_preagg`` (the engine's dense GROUP BY),
+``rle_grouped_agg`` -- the three the query path runs -- and
+``rle_filter_agg``, ``onehot_groupby``, ``semijoin_probe`` and
+``delta_decode``, which only this entry point reaches, as in the
+reference.  ``flash_attention`` (the LM stack's) is not ported yet.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from . import bitunpack as _bitunpack_mod
+from . import delta_decode as _delta_mod
+from . import hash_groupby as _groupby_mod
 from . import rle_scan_agg as _rle_mod
 from . import seg_preagg as _seg_mod
+from . import sip_probe as _sip_mod
 from .bitunpack import bitunpack, bitunpack_plain
-from .rle_scan_agg import rle_grouped_agg, rle_grouped_agg_plain
+from .delta_decode import delta_decode, delta_decode_plain
+from .hash_groupby import onehot_groupby, onehot_groupby_plain
+from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_plain,
+                           rle_grouped_agg, rle_grouped_agg_plain)
 from .seg_preagg import seg_preagg, seg_preagg_plain
+from .sip_probe import semijoin_probe, semijoin_probe_plain
 
-_COUNTED = {"bitunpack": _bitunpack_mod, "seg_preagg": _seg_mod,
-            "rle_grouped_agg": _rle_mod}
+# kernel name -> (wrapper module, its launch counter)
+_COUNTED = {"bitunpack": (_bitunpack_mod, "launches"),
+            "seg_preagg": (_seg_mod, "launches"),
+            "rle_grouped_agg": (_rle_mod, "grouped_launches"),
+            "rle_filter_agg": (_rle_mod, "filter_launches"),
+            "onehot_groupby": (_groupby_mod, "launches"),
+            "semijoin_probe": (_sip_mod, "launches"),
+            "delta_decode": (_delta_mod, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)
 
 
-__all__ = ["bitunpack", "bitunpack_plain", "launch_counts",
-           "reset_launch_counts", "rle_grouped_agg", "rle_grouped_agg_plain",
-           "seg_preagg", "seg_preagg_plain"]
+__all__ = ["bitunpack", "bitunpack_plain", "delta_decode",
+           "delta_decode_plain", "launch_counts", "onehot_groupby",
+           "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
+           "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_plain",
+           "seg_preagg", "seg_preagg_plain", "semijoin_probe",
+           "semijoin_probe_plain"]

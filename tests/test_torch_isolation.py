@@ -62,7 +62,14 @@ def test_kernel_wrappers_count_only_their_launches():
     ops.bitunpack(words, 3, 32)                   # CPU: the plain version
     ops.seg_preagg(torch.zeros(4, dtype=torch.int32),
                    torch.ones(4, dtype=torch.bool), {}, 2, ())
-    ops.rle_grouped_agg(torch.zeros((1, 2), dtype=torch.int32),
-                        torch.ones((1, 2), dtype=torch.int32), domain=2)
-    assert ops.launch_counts() == {"bitunpack": 0, "seg_preagg": 0,
-                                   "rle_grouped_agg": 0}
+    runs = torch.ones((1, 2), dtype=torch.int32)
+    ops.rle_grouped_agg(torch.zeros((1, 2), dtype=torch.int32), runs,
+                        domain=2)
+    ops.rle_filter_agg(runs, runs, lo=0, hi=1)
+    ops.onehot_groupby(runs, runs, domain=2)
+    ops.semijoin_probe(runs, torch.ones(3, dtype=torch.int32))
+    ops.delta_decode(torch.zeros((1, 1), dtype=torch.int32), runs)
+    assert ops.launch_counts() == {
+        "bitunpack": 0, "seg_preagg": 0, "rle_grouped_agg": 0,
+        "rle_filter_agg": 0, "onehot_groupby": 0, "semijoin_probe": 0,
+        "delta_decode": 0}
