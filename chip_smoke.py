@@ -53,20 +53,41 @@ Phases, one line each (any failure raises and the script exits non-zero):
    magnitude;
 6. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
    general path, then again after ``run_tuple_mover(force_moveout=True)``,
-   all against the oracle.
+   all against the oracle;
+7. the LM serving path (the database is freed first): qwen3-4b at its
+   published width (36 layers, 4.02e9 parameters) built on the card in
+   bf16 from seed 0, then, with the counters zeroed just before and read
+   just after, ``serve.generate`` on 4 prompts of 512 tokens (ids from
+   numpy, seed 0) plus 32 greedy tokens and on 1 prompt of 4096 plus 2:
+   ``flash_attention`` must launch once per layer and prefill (72, and
+   nothing else launches), each ``[lm]`` line shows prefill ms, decode
+   ms per step, tokens/s and the peak memory of that generation.  Then
+   a ``FlashCapture`` records every layer's kernel inputs in the same
+   prefill run again (its first token must equal the generation's); the
+   kernel is held against its plain version on each, on a ragged
+   S = 500 and on f32 (256, 128) inputs: max |err| within the reference
+   test's 2e-2 (bf16) or 2e-3 (f32), and every element within 2 ulps of
+   the larger of its two values in the output's type plus 1e-5; decode
+   from the prefill cache against a prefill of S + 1 tokens (max |logit
+   gap| < 0.5, tests/test_models.py's tolerance) and the prefill through
+   the plain attention instead of the kernel (< 0.5); then one profile
+   of a prefill and of a decode step (device kernels only).
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape (``ms``,
 ``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
 ``kernel_device_ms``: the kernel alone in a torch.profiler trace;
 ``bound_ms``: the bytes each call must move on its inputs over the
-H100's 3.35 TB/s; ``launches``: the run of the kernel's path -- the
-main path, or phase 5 for the four kernels only ``ops`` reaches), and
+H100's 3.35 TB/s, for ``flash_attention`` the larger of that and its
+flops over the 989 TFLOP/s bf16 rate, with ``bound_by``; ``launches``:
+the run of the kernel's path -- the main path, phase 5 for the four
+kernels only ``ops`` reaches, or phase 7's prefill shape), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -80,6 +101,15 @@ MAIN_KERNELS = ("bitunpack", "seg_preagg", "rle_grouped_agg")
 API_KERNELS = ("rle_filter_agg", "onehot_groupby", "semijoin_probe",
                "delta_decode")
 PREPASS_BLOCK = 4096            # rows per onehot_groupby block row
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
+LM_ARCH = "qwen3-4b"
+# the LM path's two prefill shapes: (batch, prompt tokens, new tokens)
+LM_SERVE = (4, 512, 32)
+LM_LONG = (1, 4096, 2)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-3}   # tests/test_kernels.py
+# and per element: |err| <= FLASH_ULPS ulps of max(|got|, |want|) in the
+# output's type, plus FLASH_FLOOR for f32 rounding next to zero
+FLASH_ULPS, FLASH_FLOOR = 2, 1e-5
 N_FACT, N_DIM = 6_000_000, 1_500_000
 N_TRICKLE = 10_000
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -110,11 +140,15 @@ def _bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _profile(fn, reps: int = 1):
+def _profile(fn, reps: int = 1, kernels_only: bool = False):
     """Device milliseconds per call from a torch.profiler trace of
-    ``reps`` calls: the total over every device kernel and the share by
-    kernel name.  Returns (None, {}) when the trace holds no device time."""
+    ``reps`` calls: the total and the share by name.  By default the
+    names are every traced event with device time, so an aten op's own
+    entry repeats its kernels' time; ``kernels_only`` keeps the device
+    kernels alone.  Returns (None, {}) when the trace holds no device
+    time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -125,6 +159,8 @@ def _profile(fn, reps: int = 1):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.key_averages():
+        if kernels_only and e.device_type != DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -904,6 +940,294 @@ def run_trickle(db, fact, dim, device) -> None:
                  route=st.groupby_algorithm, oracle="match")
 
 
+# -------------------------------------------------------------- LM path --
+
+class FlashCapture:
+    """Records the LM's ``flash_attention`` calls by q shape, with the
+    inputs of each.  It wraps ``ops.flash_attention``, the name the model
+    calls; the wrapper underneath still counts every launch."""
+
+    def __init__(self):
+        self.calls = {}          # q shape -> [(q, k, v, causal), ...]
+        self._inner = None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._inner = inner = ops.flash_attention
+
+        def wrapped(q, k, v, *, causal=True, **kw):
+            self.calls.setdefault(tuple(q.shape), []).append(
+                (q, k, v, causal))
+            return inner(q, k, v, causal=causal, **kw)
+        ops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self._inner
+
+
+def _flash_check(got, want, dtype: str) -> dict:
+    """Holds the kernel's output against the plain version's: max |err|
+    within FLASH_TOL (the reference test's) and every element within
+    FLASH_ULPS ulps of max(|got|, |want|) in the output's type plus
+    FLASH_FLOOR.  The element limit follows the values, so a fault in rows
+    whose outputs are small (late rows of a long prompt) shows too.
+    Returns max |err|, the largest share of its limit an element uses
+    (at most 1) and the median |want|."""
+    import torch
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = (g - w).abs()
+    _, ex = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.full_like(g, torch.finfo(got.dtype).eps / 2), ex)
+    limit = FLASH_ULPS * ulp + FLASH_FLOOR
+    over = err - limit
+    out = {"max_abs_err": float(err.max()),
+           "limit_share": float((err / limit).max()),
+           "median_abs_want": float(w.abs().median())}
+    if not torch.isfinite(g).all() or out["max_abs_err"] > FLASH_TOL[dtype] \
+            or float(over.max()) > 0:
+        at = int(over.argmax())
+        raise AssertionError(
+            f"flash_attention ({dtype}, shape {tuple(got.shape)}): max |err| "
+            f"{out['max_abs_err']:.3g} (limit {FLASH_TOL[dtype]}); worst "
+            f"element {at}: got {float(g.flatten()[at]):.6g} want "
+            f"{float(w.flatten()[at]):.6g}, over its limit of {FLASH_ULPS} "
+            f"ulps + {FLASH_FLOOR} by {float(over.max()):.3g}")
+    return out
+
+
+def _flash_work(q, k, causal: bool):
+    """Bytes (q, k, v read once, out written once: k and v unexpanded)
+    and flops (2 d per unmasked (query, key) pair for q.k and again for
+    P.V) of one call."""
+    S, d = q.shape[-2:]
+    T = k.shape[-2]
+    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    n_q = q.numel() // (S * d)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * d * pairs * n_q
+
+
+def _flash_row(q, k, v, causal, launches, stats, shape):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    nbytes, flops = _flash_work(q, k, causal)
+    by_bytes = _bound_ms(nbytes)
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    # the library yardstick: SDPA over (B, heads, S, d), kv expanded to
+    # the q heads once, outside the timed call
+    B, K, G, S, d = q.shape
+    T = k.shape[-2]
+    lq = q.reshape(B, K * G, S, d).contiguous()
+    lk = k.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
+    lv = v.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
+    fn = lambda: ops.flash_attention(q, k, v, causal=causal)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "launches": launches, **stats,
+            "ms": _time_ms(fn, reps=10),
+            "kernel_device_ms": _kernel_device_ms(fn,
+                                                  "flash_attention_kernel"),
+            "plain_ms": _time_ms(lambda: ops.flash_attention_plain(
+                q, k, v, causal=causal), reps=5),
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal), reps=10),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops, "shape": shape}
+
+
+def lm_phase(device):
+    """Phase 7: qwen3-4b at full width on the card.  Returns the
+    flash_attention JSON rows."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, tp=1, device=device)
+    params = model.init_params(seed=0)              # bf16, from the seed
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = {shape: torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, shape[:2]), dtype=torch.int32,
+        device=device) for shape in (LM_SERVE, LM_LONG)}
+    serve.generate(model, params, prompts[LM_SERVE][:, :64], 2)  # warm-up
+
+    # ---- the path: every launch below is counted; nothing is captured,
+    # so each generation's peak memory is what serving holds
+    gens, peaks, flash = {}, {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for shape, tokens in prompts.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()["flash_attention"]
+        gens[shape] = serve.generate(model, params, tokens, shape[2])
+        peaks[shape] = torch.cuda.max_memory_allocated()
+        flash[shape] = ops.launch_counts()["flash_attention"] - before
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _say("launches", path="lm", **{k: v for k, v in launches.items() if v})
+    others = {k: v for k, v in launches.items()
+              if v and k != "flash_attention"}
+    if any(n != cfg.n_layers for n in flash.values()) or others:
+        raise AssertionError(f"LM path launches {launches}: expected "
+                             f"flash_attention once per layer and prefill")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    for (B, S, n_new), gen in gens.items():
+        ids = gen.tokens
+        if tuple(ids.shape) != (B, n_new) or int(ids.min()) < 0 or \
+                int(ids.max()) >= cfg.vocab_size:
+            raise AssertionError(f"generate {B}x{S}: tokens {ids.shape} "
+                                 f"out of [0, {cfg.vocab_size})")
+        steps = max(gen.decode_steps, 1)
+        _say("lm", arch=cfg.name, params=model.n_params, batch=B, prompt=S,
+             new_tokens=n_new, init_s=f"{init_s:.2f}",
+             prefill_ms=f"{gen.prefill_s * 1e3:.3f}",
+             prefill_tok_per_s=f"{B * S / gen.prefill_s:.1f}",
+             decode_ms_per_step=f"{gen.decode_s * 1e3 / steps:.3f}",
+             decode_tok_per_s=f"{B * gen.decode_steps / gen.decode_s:.1f}"
+             if gen.decode_steps else "none",
+             weights_gb=f"{weights / 1e9:.3f}",
+             flash_launches=flash[(B, S, n_new)],
+             max_memory_allocated_gib=f"{peaks[(B, S, n_new)] / 2**30:.3f}",
+             first_tokens=json.dumps(ids[0, :8].tolist()))
+
+    # ---- the same prefills again with every layer's kernel inputs
+    # captured, then the kernel against its plain version on each; one
+    # shape at a time, so the captured tensors are freed in between
+    rows = []
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    for (B, S, n_new), gen in gens.items():
+        with FlashCapture() as capture:
+            logits, _ = model.prefill(params, {"tokens": prompts[
+                (B, S, n_new)]}, max_len=S + n_new)
+        calls = capture.calls.get((B, K, G, S, d), [])
+        if len(calls) != cfg.n_layers or len(capture.calls) != 1:
+            raise AssertionError(
+                f"prefill {B}x{S}: flash calls "
+                f"{ {k: len(c) for k, c in capture.calls.items()} }, "
+                f"expected {cfg.n_layers} of q {(B, K, G, S, d)}")
+        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        if not torch.equal(first, gen.tokens[:, 0]):
+            raise AssertionError(f"prefill {B}x{S}: the captured run's "
+                                 f"first tokens differ from the path's")
+        per = [_flash_check(ops.flash_attention(q, k, v, causal=c),
+                            ops.flash_attention_plain(q, k, v, causal=c),
+                            "bfloat16") for q, k, v, c in calls]
+        stats = {"max_abs_err": max(p["max_abs_err"] for p in per),
+                 "limit_share": max(p["limit_share"] for p in per),
+                 "median_abs_want": min(p["median_abs_want"] for p in per)}
+        q, k, v, c = calls[0]
+        row = _flash_row(q, k, v, c, flash[(B, S, n_new)], stats,
+                         f"prefill {B}x{S}: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} bf16 causal")
+        rows.append(row)
+        _say_row(row, layers=len(calls),
+                 max_abs_err=f"{stats['max_abs_err']:.3g}",
+                 limit_share=f"{stats['limit_share']:.3g}",
+                 min_median_abs_want=f"{stats['median_abs_want']:.3g}",
+                 bound_by=row["bound_by"])
+        del capture, calls, per, q, k, v
+    # ---- extra cases: ragged S, f32, at the model's head shapes
+    g = torch.Generator(device=device).manual_seed(7)
+    for name, qs, ks, dt in (
+            ("ragged S=500", (1, K, G, 500, d), (1, K, 1, 500, d), "bfloat16"),
+            ("f32 (256, 128)", (256, d), (256, d), "float32")):
+        tdt = getattr(torch, dt)
+        q, k, v = (torch.randn(sh, generator=g, device=device).to(tdt)
+                   for sh in (qs, ks, ks))
+        st = _flash_check(ops.flash_attention(q, k, v),
+                          ops.flash_attention_plain(q, k, v), dt)
+        _say("check", kernel="flash_attention", case=name.replace(" ", "_"),
+             max_abs_err=f"{st['max_abs_err']:.3g}", tol=FLASH_TOL[dt],
+             limit_share=f"{st['limit_share']:.3g}",
+             median_abs_want=f"{st['median_abs_want']:.3g}")
+
+    # ---- decode from the prefill cache against a prefill of S + 1 tokens:
+    # decode takes the plain attend_full, the prefill the kernel
+    B, S, _ = LM_SERVE
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                          dtype=torch.int32, device=device)
+    _, cache = model.prefill(params, {"tokens": tok[:, :S]}, max_len=S + 4)
+    ld, _ = model.decode_step(params, cache, tok[:, S:], S)
+    lf, _ = model.prefill(params, {"tokens": tok})
+    gap = float((ld - lf).abs().max())
+    if not (torch.isfinite(ld).all() and torch.isfinite(lf).all()) \
+            or gap >= 0.5:
+        raise AssertionError(f"decode vs prefill of S + 1: {gap:.4g}")
+    # ---- the prefill through the kernel against the plain version
+    kernel_logits = lf
+    inner = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, **kw: \
+        ops.flash_attention_plain(q, k, v, causal=causal)
+    try:
+        plain_logits, _ = model.prefill(params, {"tokens": tok})
+    finally:
+        ops.flash_attention = inner
+    plain_gap = float((kernel_logits - plain_logits).abs().max())
+    agree = int((kernel_logits[:, -1].argmax(-1)
+                 == plain_logits[:, -1].argmax(-1)).sum())
+    if plain_gap >= 0.5:
+        raise AssertionError(f"prefill logits, kernel vs plain attention: "
+                             f"{plain_gap:.4g}")
+    real = lf[..., :cfg.vocab_size].float()       # the padding is masked
+    _say("check", lm="decode_vs_prefill", batch=B, prompt=S,
+         max_abs_logit_gap=f"{gap:.4g}", limit=0.5,
+         kernel_vs_plain_prefill_gap=f"{plain_gap:.4g}",
+         max_abs_logit=f"{float(real.abs().max()):.4g}",
+         logit_std=f"{float(real.std()):.4g}",
+         argmax_agree=f"{agree}/{B}")
+
+    # ---- where a prefill's and a decode step's device time goes
+    step = lambda: model.decode_step(params, cache, tok[:, S:], S)
+    for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
+            params, {"tokens": prompts[LM_SERVE]})), ("decode step", step)):
+        host_ms = _host_ms(fn)
+        _, kernels = _profile(fn, kernels_only=True)
+        if not kernels:
+            _say("profile", lm=what.replace(" ", "_"),
+                 device_ms="not measured")
+            continue
+        dev_ms = sum(kernels.values())
+        flash = sum(v for k2, v in kernels.items()
+                    if "flash_attention_kernel" in k2)
+        top = sorted(kernels, key=kernels.get, reverse=True)[:6]
+        _say("profile", lm=what.replace(" ", "_"), host_ms=f"{host_ms:.3f}",
+             kernel_ms=f"{dev_ms:.4f}", busy_share=f"{dev_ms / host_ms:.4f}",
+             flash_ms=f"{flash:.4f}", kernels=len(kernels),
+             top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
+                             for k2 in top}, separators=(",", ":")))
+    return rows
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Host milliseconds per call, synchronised, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 # ----------------------------------------------------------------- main --
 
 def main() -> int:
@@ -979,6 +1303,11 @@ def main() -> int:
     rows += api_rows
 
     run_trickle(db, fact, dim, device)
+    torch.cuda.synchronize()
+    del db, capture                      # the LM phase needs the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += lm_phase(device)
     torch.cuda.synchronize()
 
     print(smi, flush=True)

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("bitunpack", "seg_preagg", "rle_grouped_agg", "rle_filter_agg",
-           "onehot_groupby", "semijoin_probe", "delta_decode")
+           "onehot_groupby", "semijoin_probe", "delta_decode",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -117,14 +118,16 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors, dtypes: Optional[tuple] = None) -> None:
+def require_cuda(name: str, *tensors, dtypes: Optional[tuple] = None,
+                 contiguous: bool = True) -> None:
     """Wrapper-side checks shared by every kernel: each tensor lies on one
-    CUDA device and is contiguous (and, when given, of the listed dtype)."""
+    CUDA device and, unless the kernel reads strides, is contiguous (and,
+    when given, of the listed dtype)."""
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} is not contiguous")
         if dtypes is not None and t.dtype != dtypes[i]:
             raise TypeError(f"{name}: argument {i} is {t.dtype}, "

@@ -11,7 +11,8 @@ Ported: ``bitunpack``, ``seg_preagg`` (the engine's dense GROUP BY),
 ``rle_grouped_agg`` -- the three the query path runs -- and
 ``rle_filter_agg``, ``onehot_groupby``, ``semijoin_probe`` and
 ``delta_decode``, which only this entry point reaches, as in the
-reference.  ``flash_attention`` (the LM stack's) is not ported yet.
+reference, and ``flash_attention``, which the port's LM prefill calls
+here for its causal self-attention (models/transformer.py).
 """
 from __future__ import annotations
 
@@ -19,12 +20,14 @@ from typing import Dict
 
 from . import bitunpack as _bitunpack_mod
 from . import delta_decode as _delta_mod
+from . import flash_attention as _flash_mod
 from . import hash_groupby as _groupby_mod
 from . import rle_scan_agg as _rle_mod
 from . import seg_preagg as _seg_mod
 from . import sip_probe as _sip_mod
 from .bitunpack import bitunpack, bitunpack_plain
 from .delta_decode import delta_decode, delta_decode_plain
+from .flash_attention import flash_attention, flash_attention_plain
 from .hash_groupby import onehot_groupby, onehot_groupby_plain
 from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_plain,
                            rle_grouped_agg, rle_grouped_agg_plain)
@@ -38,7 +41,8 @@ _COUNTED = {"bitunpack": (_bitunpack_mod, "launches"),
             "rle_filter_agg": (_rle_mod, "filter_launches"),
             "onehot_groupby": (_groupby_mod, "launches"),
             "semijoin_probe": (_sip_mod, "launches"),
-            "delta_decode": (_delta_mod, "launches")}
+            "delta_decode": (_delta_mod, "launches"),
+            "flash_attention": (_flash_mod, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -53,7 +57,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["bitunpack", "bitunpack_plain", "delta_decode",
-           "delta_decode_plain", "launch_counts", "onehot_groupby",
+           "delta_decode_plain", "flash_attention", "flash_attention_plain",
+           "launch_counts", "onehot_groupby",
            "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
            "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_plain",
            "seg_preagg", "seg_preagg_plain", "semijoin_probe",

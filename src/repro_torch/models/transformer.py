@@ -1,0 +1,237 @@
+"""Decoder-only LM assembly for the dense family.
+
+Layer segmentation: archs with heterogeneous layers (hymba's 3 global-
+attention layers among sliding-window layers) are split into *segments* --
+unstacked singles and stacked runs -- so every stacked run is homogeneous.
+
+Modes:
+  prefill -- full sequence, last-position logits + KV cache out
+  decode  -- one token against the cache
+
+Mirrors ``src/repro/models/transformer.py`` for the dense family: the
+reference's ``lax.scan`` over a segment's stacked layer dimension is a
+Python loop over it, and parameters and caches keep the reference's
+stacked layout (a leading layers dimension).  One routing decision is the
+port's own: the prefill's causal self-attention over full (unwindowed)
+context goes to ``kernels.ops.flash_attention``, the Hopper kernel that
+replaces the reference's Pallas ``flash_attention``, where the reference
+computes the same function with ``attend``; windowed layers and decode
+take ``attend`` as in the reference.  The kernel keeps P.V in f32 where
+``attend_full`` casts the probabilities to bf16 first: the two differ by
+about one bf16 ulp of the context.  MoE, SSM, hybrid and cross-attention
+blocks wait for their slices; ``mode="train"`` waits for the training
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from . import attention as attn
+from .layers import (embed_decls, mlp_apply, mlp_decls, rmsnorm,
+                     rmsnorm_decl)
+from .params import Decls, ParamDecl
+
+CACHE_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Segments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    name: str
+    n_layers: int          # 1 for singles
+    scanned: bool
+    window: Optional[int]  # None = full attention
+
+
+def segments(cfg: ArchConfig) -> List[Segment]:
+    if not cfg.global_layers or cfg.window is None:
+        return [Segment("layers", cfg.n_layers, cfg.n_layers > 1, cfg.window)]
+    segs: List[Segment] = []
+    prev = 0
+    for i, g in enumerate(sorted(cfg.global_layers)):
+        if g > prev:
+            segs.append(Segment(f"swa_{i}", g - prev, g - prev > 1,
+                                cfg.window))
+        segs.append(Segment(f"global_{i}", 1, False, None))
+        prev = g + 1
+    if prev < cfg.n_layers:
+        segs.append(Segment(f"swa_tail", cfg.n_layers - prev,
+                            cfg.n_layers - prev > 1, cfg.window))
+    assert sum(s.n_layers for s in segs) == cfg.n_layers
+    return segs
+
+
+def _stack_decls(decls: Decls, n: int) -> Decls:
+    """Prepend a scanned 'layers' dim to every leaf."""
+    out = {}
+    for k, v in decls.items():
+        if isinstance(v, ParamDecl):
+            out[k] = ParamDecl((n,) + v.shape, ("layers",) + v.axes,
+                               v.init, v.scale)
+        else:
+            out[k] = _stack_decls(v, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Generic block (dense)
+# ---------------------------------------------------------------------------
+
+def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
+    if cfg.ssm is not None or cfg.moe is not None or cross:
+        raise NotImplementedError(f"{cfg.name}: only dense blocks are "
+                                  f"ported so far")
+    d = cfg.d_model
+    decls: Decls = {}
+    if cfg.n_heads:
+        layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, tp)
+        decls["ln1"] = rmsnorm_decl(d)
+        decls["attn"] = attn.attention_decls(d, layout, cfg.qk_norm)
+    if cfg.d_ff:
+        decls["ln2"] = rmsnorm_decl(d)
+        decls["mlp"] = mlp_decls(d, cfg.d_ff, cfg.mlp)
+    return decls
+
+
+def flash_prefill(q, k, v):
+    """Causal self-attention of a prefill through the flash kernel: q
+    (B,S,K,G,H) goes in as the view (B,K,G,S,H) and k, v (B,S,K,H) as views
+    (B,K,1,S,H).  The kernel reads them through their strides, each kv head
+    once for its G query heads, and writes its output in q's (B,S,K,G,H)
+    order, so no side makes a copy."""
+    out = ops.flash_attention(q.permute(0, 2, 3, 1, 4),
+                              k.permute(0, 2, 1, 3).unsqueeze(2),
+                              v.permute(0, 2, 1, 3).unsqueeze(2), causal=True)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
+                 causal: bool = True, max_len: Optional[int] = None):
+    """Self-attention on pre-normed h; returns (out, cache_out)."""
+    q, k, v = attn.project_qkv(p, h, layout, positions=positions,
+                               rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+    if mode == "decode":
+        ck, cv = attn.cache_update(cache["k"], cache["v"], k, v, pos, window)
+        ctx = attn.attend_decode(q, ck, cv, pos, window)
+        return ctx, {"k": ck, "v": cv}
+    if causal and window is None:
+        # q and k share the prefill's positions, arange(S) (model.py), so
+        # the kernel's causal mask by index is the mask by position
+        ctx = flash_prefill(q, k, v)
+    else:
+        pos1d = positions[0]
+        ctx = attn.attend(q, k, v, pos1d, pos1d, causal=causal,
+                          window=window)
+    S = k.shape[1]
+    cap = max_len or S
+    if window:
+        # ring buffer of W slots; token p lives at slot p % W
+        W = min(S, window)
+        kw, vw = k[:, S - W:], v[:, S - W:]
+        if W < window:
+            kw = torch.nn.functional.pad(kw, (0, 0, 0, 0, 0, window - W))
+            vw = torch.nn.functional.pad(vw, (0, 0, 0, 0, 0, window - W))
+        shift = (S - W) % window if W == window else (S - W)
+        kc = torch.roll(kw, shift, dims=1)
+        vc = torch.roll(vw, shift, dims=1)
+    else:
+        pad = cap - S
+        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
+        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
+    return ctx, {"k": kc.to(CACHE_DTYPE), "v": vc.to(CACHE_DTYPE)}
+
+
+def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
+                x: torch.Tensor, *, mode: str, window: Optional[int],
+                positions: Optional[torch.Tensor],
+                cache: Optional[Dict[str, Any]] = None,
+                pos: Optional[int] = None, causal: bool = True,
+                max_len: Optional[int] = None):
+    """One dense decoder block. Returns (x, cache_out); the dense family
+    has no auxiliary loss."""
+    cache = cache or {}
+    cache_out: Dict[str, Any] = {}
+    if cfg.n_heads and "attn" in p:
+        layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, tp)
+        h = rmsnorm(p["ln1"], x)
+        ctx, c_attn = _attn_branch(cfg, layout, p["attn"], h, mode=mode,
+                                   window=window, positions=positions,
+                                   cache=cache.get("attn"), pos=pos,
+                                   causal=causal, max_len=max_len)
+        x = x + attn.output_proj(p["attn"], ctx, layout)
+        cache_out["attn"] = c_attn
+    if cfg.d_ff:
+        h = rmsnorm(p["ln2"], x)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp)
+    return x, (cache_out or None)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model decls / apply
+# ---------------------------------------------------------------------------
+
+def decoder_decls(cfg: ArchConfig, tp: int) -> Decls:
+    decls: Decls = dict(embed_decls(cfg.vocab_size, cfg.d_model,
+                                    cfg.tie_embeddings))
+    for seg in segments(cfg):
+        b = block_decls(cfg, tp)
+        decls[seg.name] = _stack_decls(b, seg.n_layers) if seg.scanned else b
+    decls["ln_f"] = rmsnorm_decl(cfg.d_model)
+    return decls
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, so in-place cache writes reach
+    the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
+                x: torch.Tensor, *, mode: str,
+                positions: Optional[torch.Tensor] = None,
+                caches: Optional[Dict[str, Any]] = None,
+                pos: Optional[int] = None, causal: bool = True,
+                max_len: Optional[int] = None):
+    """Run all segments. Returns (x, caches_out).  In decode the caches
+    are written in place and returned."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode={mode!r}: the port serves "
+                                  f"(prefill, decode); training waits for "
+                                  f"its slice")
+    caches = caches or {}
+    caches_out: Dict[str, Any] = {}
+    for seg in segments(cfg):
+        p_seg = params[seg.name]
+        c_seg = caches.get(seg.name)
+        kw = dict(mode=mode, window=seg.window, positions=positions,
+                  pos=pos, causal=causal, max_len=max_len)
+        if not seg.scanned:
+            x, caches_out[seg.name] = block_apply(cfg, tp, p_seg, x,
+                                                  cache=c_seg, **kw)
+            continue
+        outs = []
+        for i in range(seg.n_layers):
+            c_l = None if c_seg is None else _layer(c_seg, i)
+            x, c_out = block_apply(cfg, tp, _layer(p_seg, i), x, cache=c_l,
+                                   **kw)
+            outs.append(c_out)
+        caches_out[seg.name] = c_seg if mode == "decode" else _stack(outs)
+    return x, caches_out

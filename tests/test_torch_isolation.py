@@ -69,7 +69,31 @@ def test_kernel_wrappers_count_only_their_launches():
     ops.onehot_groupby(runs, runs, domain=2)
     ops.semijoin_probe(runs, torch.ones(3, dtype=torch.int32))
     ops.delta_decode(torch.zeros((1, 1), dtype=torch.int32), runs)
+    q = torch.zeros((1, 2, 5, 64))
+    ops.flash_attention(q, q[:, :1], q[:, :1])
     assert ops.launch_counts() == {
         "bitunpack": 0, "seg_preagg": 0, "rle_grouped_agg": 0,
         "rle_filter_agg": 0, "onehot_groupby": 0, "semijoin_probe": 0,
-        "delta_decode": 0}
+        "delta_decode": 0, "flash_attention": 0}
+
+
+def test_lm_entry_points_without_a_gpu_raise_and_run_on_the_cpu():
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, init_params
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal needs none")
+    cfg = configs.get("qwen3-4b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)                             # the default device
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(model.decls, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])
+    params = model.init_params(seed=0)
+    assert params["embedding"].device.type == "cpu"
+    assert params["embedding"].dtype == torch.bfloat16
+    gen = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len",
+                      "8", "--tokens", "3"])
+    assert gen.tokens.shape == (2, 3) and gen.decode_steps == 2

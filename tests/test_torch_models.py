@@ -1,0 +1,426 @@
+"""The port's LM serving path against the reference's, on the CPU.
+
+Each module meets its counterpart in ``repro.models`` on the same numpy
+inputs from a seed: layers (``rmsnorm``, ``apply_rope``, ``mlp_apply``,
+``logits_fn``), attention (``resolve_head_layout``, ``project_qkv``, the
+``attend_full``/``attend_chunked`` cores, the KV cache), then the whole
+slice on the reduced dense configs with the reference's own f32 weights
+carried across (``repro_torch.models.carry``) and cast to bf16 once, as
+serving holds them.
+
+Tolerances: f32 within 1e-5; bf16 within 2 ulps of the working type
+(summation order differs between XLA's CPU dots and PyTorch's, and XLA
+may keep a fused chain in f32 where PyTorch rounds per op).  The whole
+slice: prefill logits within 0.06 with the same argmax (the port's
+prefill attention is the flash contract, P.V in f32, where the
+reference's ``attend_full`` casts P to bf16 first: measured gaps 0.0052,
+0.0039 and 0.027 on qwen3, granite and phi3); decode from the carried
+reference cache within two bf16 ulps at the largest logit (both take the
+plain ``attend_full``; measured 0.0039, 0.0039 and 0.0234, all of it
+XLA's excess precision inside fused chains: with that off the port's
+decode is bit for bit the reference's, a test of its own); the port's
+own decode against its prefill of S + 1 tokens within 0.5, the
+reference's tolerance (tests/test_models.py).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.models import attention as ref_attn
+from repro.models import build_model as ref_build_model
+from repro.models import init_params as ref_init_params
+from repro.models import layers as ref_layers
+from repro_torch import configs
+from repro_torch.launch import serve
+from repro_torch.models import attention as attn
+from repro_torch.models import build_model, layers
+from repro_torch.models.carry import (cache_from_numpy, params_from_numpy,
+                                      tensor_from_numpy)
+
+DENSE = ("qwen3-4b", "granite-3-8b", "phi3-mini-3.8b")
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _pair(rng, shape, dtype, scale=1.0):
+    """One seeded numpy array as (jax array, torch tensor) of ``dtype``."""
+    j = jnp.asarray(rng.normal(size=shape) * scale, JDT[dtype])
+    return j, tensor_from_numpy(np.asarray(j), "cpu")
+
+
+def _close(got, want, dtype):
+    """f32: within 1e-5.  bf16: within 2 ulps of the larger magnitude."""
+    g = got.to(torch.float32).numpy().astype(np.float64)
+    w = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        return
+    mag = np.maximum(np.maximum(np.abs(g), np.abs(w)), 1e-30)
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    bad = np.abs(g - w) > 2 * ulp
+    assert not bad.any(), (np.abs(g - w)[bad].max(), int(bad.sum()))
+
+
+# ------------------------------------------------------------ head layout --
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 8, 16])
+def test_resolve_head_layout_is_the_reference(tp):
+    """Every head case of tests/test_models.py's property test."""
+    for hq in (1, 2, 4, 5, 8, 16, 25, 32, 36):
+        for hkv in (1, 2, 4, 8, 16):
+            if hq % hkv:
+                hkv = 1
+            want = ref_attn.resolve_head_layout(hq, hkv, 64, tp)
+            got = attn.resolve_head_layout(hq, hkv, 64, tp)
+            assert dataclasses.astuple(got) == dataclasses.astuple(want)
+            np.testing.assert_array_equal(got.alive_mask(),
+                                          want.alive_mask())
+
+
+# ----------------------------------------------------------------- layers --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm(dtype):
+    rng = np.random.default_rng(1)
+    x, tx = _pair(rng, (2, 5, 64), dtype, 3.0)
+    s, ts = _pair(rng, (64,), "float32")
+    _close(layers.rmsnorm(ts, tx), ref_layers.rmsnorm(s, x), dtype)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope(theta, dtype):
+    rng = np.random.default_rng(2)
+    x, tx = _pair(rng, (2, 7, 3, 2, 16), dtype)
+    pos = rng.integers(0, 600, (2, 7)).astype(np.int32)
+    _close(layers.apply_rope(tx, torch.from_numpy(pos), theta),
+           ref_layers.apply_rope(x, jnp.asarray(pos), theta), dtype)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_apply(kind, dtype):
+    rng = np.random.default_rng(3)
+    x, tx = _pair(rng, (2, 5, 32), dtype)
+    names = ("wi_gate", "wi_up", "wo") if kind == "swiglu" else ("wi", "wo")
+    p, tp = {}, {}
+    for n in names:
+        shape = (64, 32) if n == "wo" else (32, 64)
+        p[n], tp[n] = _pair(rng, shape, dtype, 0.2)
+    _close(layers.mlp_apply(tp, tx, kind),
+           ref_layers.mlp_apply(p, x, kind), dtype)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logits_fn_masks_the_padded_vocab(tie, dtype):
+    rng = np.random.default_rng(4)
+    vocab, d = 250, 32
+    vp = layers.pad_vocab(vocab)
+    assert vp == ref_layers.pad_vocab(vocab) == 256
+    x, tx = _pair(rng, (2, 3, d), dtype)
+    p, tp = {}, {}
+    p["embedding"], tp["embedding"] = _pair(rng, (vp, d), "float32", 0.1)
+    if not tie:
+        p["unembed"], tp["unembed"] = _pair(rng, (d, vp), "float32", 0.1)
+    got = layers.logits_fn(tp, tx, vocab, tie)
+    assert got.dtype == torch.float32
+    assert torch.all(got[..., vocab:] == -1e9)
+    _close(got, ref_layers.logits_fn(p, x, vocab, tie), dtype)
+    tok = rng.integers(0, vocab, (2, 3)).astype(np.int32)
+    _close(layers.embed_lookup(tp, torch.from_numpy(tok), torch.bfloat16),
+           ref_layers.embed_lookup(p, jnp.asarray(tok), jnp.bfloat16),
+           "bfloat16")
+
+
+# -------------------------------------------------------------- attention --
+
+@pytest.mark.parametrize("tp", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_project_qkv_and_output_proj(tp, dtype):
+    rng = np.random.default_rng(5)
+    layout = attn.resolve_head_layout(4, 1, 16, tp)   # kv_map (0, 0) at 2
+    decls = ref_attn.attention_decls(32, layout, qk_norm=True)
+    assert {k: dataclasses.astuple(d) for k, d in decls.items()} == {
+        k: dataclasses.astuple(d)
+        for k, d in attn.attention_decls(32, layout, qk_norm=True).items()}
+    p, tpp = {}, {}
+    for n, dcl in decls.items():
+        p[n], tpp[n] = _pair(rng, dcl.shape, "float32", 0.3)
+    x, tx = _pair(rng, (2, 6, 32), dtype)
+    pos = np.tile(np.arange(6, dtype=np.int32), (2, 1))
+    want = ref_attn.project_qkv(p, x, layout, positions=jnp.asarray(pos),
+                                rope_theta=1e4, qk_norm=True)
+    got = attn.project_qkv(tpp, tx, layout, positions=torch.from_numpy(pos),
+                           rope_theta=1e4, qk_norm=True)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+    _close(attn.output_proj(tpp, got[0], layout),
+           ref_attn.output_proj(p, want[0], layout), dtype)
+
+
+def _qkv(rng, B, S, T, K, G, H, dtype):
+    q = _pair(rng, (B, S, K, G, H), dtype)
+    k = _pair(rng, (B, T, K, H), dtype)
+    v = _pair(rng, (B, T, K, H), dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_full(causal, window, dtype):
+    rng = np.random.default_rng(6)
+    (q, tq), (k, tk), (v, tv) = _qkv(rng, 2, 20, 20, 2, 2, 16, dtype)
+    pos = np.arange(20, dtype=np.int32)
+    _close(attn.attend_full(tq, tk, tv, torch.from_numpy(pos),
+                            torch.from_numpy(pos), causal=causal,
+                            window=window),
+           ref_attn.attend_full(q, k, v, jnp.asarray(pos), jnp.asarray(pos),
+                                causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_chunked_with_a_small_chunk(causal, window, dtype):
+    """T = 20 over chunks of 8: two full chunks and a padded third."""
+    rng = np.random.default_rng(7)
+    (q, tq), (k, tk), (v, tv) = _qkv(rng, 2, 20, 20, 2, 2, 16, dtype)
+    pos = np.arange(20, dtype=np.int32)
+    want = ref_attn.attend_chunked(q, k, v, jnp.asarray(pos),
+                                   jnp.asarray(pos), causal=causal,
+                                   window=window, chunk=8)
+    got = attn.attend_chunked(tq, tk, tv, torch.from_numpy(pos),
+                              torch.from_numpy(pos), causal=causal,
+                              window=window, chunk=8)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_cache_positions(window):
+    for T in (8, 12):
+        for pos in (0, 3, 7, 8, 11, 20):
+            want = np.asarray(ref_attn.cache_positions(
+                jnp.asarray(pos, jnp.int32), T, window))
+            got = attn.cache_positions(pos, T, window).numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_cache_update_and_attend_decode(window):
+    """A step written into a cache (in place in the port; a ring slot under
+    a window; a start past the end clamped as dynamic_update_slice does)
+    and the query attended against it."""
+    rng = np.random.default_rng(8)
+    T = 8 if window else 12
+    ck, tck = _pair(rng, (2, T, 2, 16), "bfloat16")
+    cv, tcv = _pair(rng, (2, T, 2, 16), "bfloat16")
+    for pos in (5, 9, 13):
+        (q, tq), (k, tk), (v, tv) = _qkv(rng, 2, 1, 1, 2, 2, 16, "bfloat16")
+        ck, cv = ref_attn.cache_update(ck, cv, k, v,
+                                       jnp.asarray(pos, jnp.int32), window)
+        out_k, out_v = attn.cache_update(tck, tcv, tk, tv, pos, window)
+        assert out_k is tck and out_v is tcv               # in place
+        np.testing.assert_array_equal(tck.to(torch.float32).numpy(),
+                                      np.asarray(ck, np.float32))
+        np.testing.assert_array_equal(tcv.to(torch.float32).numpy(),
+                                      np.asarray(cv, np.float32))
+        _close(attn.attend_decode(tq, tck, tcv, pos, window),
+               ref_attn.attend_decode(q, ck, cv, jnp.asarray(pos, jnp.int32),
+                                      window), "bfloat16")
+
+
+# -------------------------------------------------------------- the slice --
+
+def _models(arch, window=None):
+    cfg = ref_configs.get(arch).reduced()
+    port_cfg = configs.get(arch).reduced()
+    if window:
+        cfg = dataclasses.replace(cfg, window=window)
+        port_cfg = dataclasses.replace(port_cfg, window=window)
+    ref_model = ref_build_model(cfg, tp=1)
+    ref_params = ref_init_params(ref_model.decls, jax.random.key(0))
+    model = build_model(port_cfg, tp=1, device="cpu")
+    params = model.load_params(params_from_numpy(
+        jax.tree.map(np.asarray, ref_params), "cpu"))
+    assert model.n_params == ref_model.n_params
+    return cfg, ref_model, ref_params, model, params
+
+
+@pytest.mark.parametrize("arch,window", [(a, None) for a in DENSE]
+                         + [("qwen3-4b", 16)])
+def test_slice_prefill_and_decode_match_the_reference(arch, window):
+    """The reduced dense configs; qwen3-4b also with a sliding window of
+    16 (no published dense config has one), whose prefill takes attend
+    and whose cache is the reference's ring buffer."""
+    cfg, ref_model, ref_params, model, params = _models(arch, window)
+    rng = np.random.default_rng(3)
+    B, S = 2, 32
+    tok = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    ttok = torch.from_numpy(tok)
+
+    # prefill: the port's flash contract against the reference's attend
+    want, ref_cache = ref_model.prefill(
+        ref_params, {"tokens": jnp.asarray(tok[:, :S])}, max_len=S + 4)
+    got, cache = model.prefill(params, {"tokens": ttok[:, :S]},
+                               max_len=S + 4)
+    want = np.asarray(want)
+    gap = np.abs(got.numpy() - want).max()
+    assert gap < 0.06, gap
+    np.testing.assert_array_equal(got.numpy()[:, -1].argmax(-1),
+                                  want[:, -1].argmax(-1))
+    decl = model.cache_decls(B, S + 4)
+    for seg, entry in cache.items():
+        for n, t in entry["attn"].items():
+            shape, _, dtype = decl[seg]["attn"][n]
+            assert tuple(t.shape) == shape == ref_cache[seg]["attn"][n].shape
+            assert t.dtype == dtype == torch.bfloat16
+
+    # decode from the reference's own cache, carried across: the logits
+    # come out of a bf16 product, so two bf16 ulps at the largest logit
+    ref_ld, _ = ref_model.decode_step(ref_params, ref_cache,
+                                      jnp.asarray(tok[:, S:]),
+                                      jnp.asarray(S, jnp.int32))
+    carried = cache_from_numpy(jax.tree.map(np.asarray, ref_cache), "cpu")
+    ld, _ = model.decode_step(params, carried, ttok[:, S:], S)
+    ref_ld = np.asarray(ref_ld)
+    gap = np.abs(ld.numpy() - ref_ld).max()
+    top = np.abs(ref_ld[..., :cfg.vocab_size]).max()
+    assert gap <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7), (gap, top)
+
+    # the port's own decode against its prefill of S + 1 tokens
+    ld, _ = model.decode_step(params, cache, ttok[:, S:], S)
+    lf, _ = model.prefill(params, {"tokens": ttok})
+    assert float((ld - lf).abs().max()) < 0.5
+
+
+_EXACT_REFERENCE = """
+import sys, jax, jax.numpy as jnp, numpy as np
+from repro import configs
+from repro.models import build_model, init_params
+def put(flat, prefix, tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            put(flat, prefix + k + "/", v)
+        else:
+            flat[prefix + k] = np.asarray(v, np.float32)
+for arch in sys.argv[2:]:
+    cfg = configs.get(arch).reduced()
+    model = build_model(cfg, tp=1)
+    params = init_params(model.decls, jax.random.key(0))
+    tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 33))
+    tok = jnp.asarray(tok, jnp.int32)
+    _, cache = model.prefill(params, {"tokens": tok[:, :32]}, max_len=36)
+    logits, _ = model.decode_step(params, cache, tok[:, 32:],
+                                  jnp.asarray(32, jnp.int32))
+    flat = {}
+    put(flat, "p/", params)
+    put(flat, "c/", cache)
+    np.savez(f"{sys.argv[1]}/{arch}.npz", tok=np.asarray(tok),
+             logits=np.asarray(logits), **flat)
+"""
+
+
+@pytest.fixture(scope="module")
+def exact_reference(tmp_path_factory):
+    """The reference's params, prefill cache and decode logits for every
+    dense config, computed once in a process whose XLA rounds every bf16
+    op as written (excess precision off)."""
+    import os
+    import subprocess
+    import sys
+    out = tmp_path_factory.mktemp("exact")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_allow_excess_precision=false")
+    run = subprocess.run([sys.executable, "-c", _EXACT_REFERENCE, str(out),
+                          *DENSE], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    return out
+
+
+def _unflatten(npz, prefix):
+    tree = {}
+    for name in npz.files:
+        if name.startswith(prefix):
+            *path, leaf = name[len(prefix):].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = npz[name]
+    return tree
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_slice_decode_is_bit_exact_without_xla_excess_precision(
+        arch, exact_reference):
+    """The decode gap above is XLA's, not the port's: XLA may skip a bf16
+    rounding inside a fused chain (excess precision).  With that off, the
+    reference rounds every op as written, as PyTorch does, and the port's
+    decode_step from the carried cache gives the same logits bit for bit."""
+    npz = np.load(exact_reference / f"{arch}.npz")
+    model = build_model(configs.get(arch).reduced(), tp=1, device="cpu")
+    params = model.load_params(params_from_numpy(_unflatten(npz, "p/"),
+                                                  "cpu"))
+    cache = cache_from_numpy(_unflatten(npz, "c/"), "cpu")
+    cache = {k: {kk: {n: t.to(torch.bfloat16) for n, t in vv.items()}
+                 for kk, vv in v.items()} for k, v in cache.items()}
+    tok = torch.from_numpy(npz["tok"])
+    got, _ = model.decode_step(params, cache, tok[:, 32:], 32)
+    np.testing.assert_array_equal(got.numpy(), npz["logits"])
+
+
+def test_serve_generate_first_token_is_the_references():
+    cfg, ref_model, ref_params, model, params = _models("qwen3-4b")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    gen = serve.generate(model, params, torch.from_numpy(tok), 4)
+    assert gen.tokens.shape == (4, 4) and gen.decode_steps == 3
+    logits, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tok)},
+                                  max_len=36)
+    np.testing.assert_array_equal(gen.tokens[:, 0].numpy(),
+                                  np.asarray(logits)[:, -1].argmax(-1))
+
+
+def test_families_not_yet_ported_raise():
+    for arch in ("olmoe-1b-7b", "mamba2-130m", "hymba-1.5b",
+                 "seamless-m4t-medium", "llama-3.2-vision-11b"):
+        with pytest.raises(NotImplementedError):
+            build_model(configs.get(arch).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        build_model(configs.get("qwen3-4b").reduced(), kv_quant=True,
+                    device="cpu")
+    model = build_model(configs.get("qwen3-4b").reduced(), device="cpu")
+    from repro_torch.models.transformer import run_decoder
+    with pytest.raises(NotImplementedError, match="train"):
+        run_decoder(model.cfg, 1, {}, torch.zeros(1, 1, 64), mode="train")
+
+
+def test_init_params_is_seeded_per_path():
+    """One generator per leaf, seeded from (seed, crc32 of its path): the
+    same seed gives the same weights, a leaf does not depend on the others,
+    and the stddevs are the reference's (_init_one)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.params import ParamDecl
+    decls = {"a": ParamDecl((64, 256), ("embed", "mlp")),
+             "b": {"e": ParamDecl((512, 32), ("vocab", "embed"),
+                                  init="embed"),
+                   "n": ParamDecl((32,), (None,), init="ones"),
+                   "z": ParamDecl((4,), (None,), init="zeros")}}
+    p1 = init_params(decls, 3, device="cpu")
+    p2 = init_params(decls, 3, device="cpu")
+    alone = init_params({"a": decls["a"]}, 3, device="cpu")
+    other = init_params(decls, 4, device="cpu")
+    assert torch.equal(p1["a"], p2["a"]) and torch.equal(p1["a"], alone["a"])
+    assert not torch.equal(p1["a"], other["a"])
+    assert abs(float(p1["a"].std()) - 64 ** -0.5) < 0.01
+    assert abs(float(p1["b"]["e"].std()) - 0.02) < 0.002
+    assert torch.equal(p1["b"]["n"], torch.ones(32))
+    assert torch.equal(p1["b"]["z"], torch.zeros(4))
+    assert init_params(decls, 3, torch.bfloat16, "cpu")["a"].dtype \
+        == torch.bfloat16
