@@ -54,7 +54,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
 6. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
    general path, then again after ``run_tuple_mover(force_moveout=True)``,
    all against the oracle;
-7. the LM serving path (the database is freed first): qwen3-4b at its
+7. the LM serving path (the database is freed first): the bf16 flash
+   kernels' machine code must hold warpgroup MMAs (``[sass]`` lines:
+   HGMMA counted by ``cuobjdump``); then qwen3-4b at its
    published width (36 layers, 4.02e9 parameters) built on the card in
    bf16 from seed 0, then, with the counters zeroed just before and read
    just after, ``serve.generate`` on 4 prompts of 512 tokens (ids from
@@ -65,7 +67,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    a ``FlashCapture`` records every layer's kernel inputs in the same
    prefill run again (its first token must equal the generation's); the
    kernel is held against its plain version on each, on a ragged
-   S = 500 and on f32 (256, 128) inputs: max |err| within the reference
+   S = 500, on f32 (256, 128) inputs, and on bf16 cases for the tensor-core
+   kernel's other paths (head dims 64 and 96, non-causal 128 x 384 at
+   head dim 128): max |err| within the reference
    test's 2e-2 (bf16) or 2e-3 (f32), and every element within 2 ulps of
    the larger of its two values in the output's type plus 1e-5; decode
    from the prefill cache against a prefill of S + 1 tokens (max |logit
@@ -79,7 +83,8 @@ row per kernel and, for seg_preagg, per main-path shape (``ms``,
 ``kernel_device_ms``: the kernel alone in a torch.profiler trace;
 ``bound_ms``: the bytes each call must move on its inputs over the
 H100's 3.35 TB/s, for ``flash_attention`` the larger of that and its
-flops over the 989 TFLOP/s bf16 rate, with ``bound_by``; ``launches``:
+flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
+``bound_share``, the bound over ``kernel_device_ms``; ``launches``:
 the run of the kernel's path -- the main path, phase 5 for the four
 kernels only ``ops`` reaches, or phase 7's prefill shape), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1024,20 +1029,44 @@ def _flash_row(q, k, v, causal, launches, stats, shape):
     lk = k.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
     lv = v.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
     fn = lambda: ops.flash_attention(q, k, v, causal=causal)
+    device_ms = _kernel_device_ms(fn, "flash_attention_kernel")
+    bound_ms = max(by_bytes, by_ops)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:73",
             "launches": launches, **stats,
             "ms": _time_ms(fn, reps=10),
-            "kernel_device_ms": _kernel_device_ms(fn,
-                                                  "flash_attention_kernel"),
+            "kernel_device_ms": device_ms,
             "plain_ms": _time_ms(lambda: ops.flash_attention_plain(
                 q, k, v, causal=causal), reps=5),
             "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
                 lq, lk, lv, is_causal=causal), reps=10),
-            "bound_ms": max(by_bytes, by_ops),
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_share": None if device_ms is None else bound_ms / device_ms,
             "bound_bytes": nbytes, "bound_flops": flops, "shape": shape}
+
+
+def flash_sass() -> None:
+    """The bf16 flash kernels' machine code holds tensor-core products:
+    ``cuobjdump --dump-sass`` of the built library, HGMMA (warpgroup MMA)
+    counted per sm90 instantiation; raises if one has none."""
+    from pathlib import Path
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(build._lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "flash_attention_kernel_sm90" in name:
+            funcs[name] = (part.count("HGMMA"), part.count("FFMA"))
+    for name, (hgmma, ffma) in sorted(funcs.items()):
+        _say("sass", kernel=name, hgmma=hgmma, ffma=ffma)
+    if len(funcs) != 2 or not all(h for h, _ in funcs.values()):
+        raise AssertionError(f"flash_attention sm90 kernels without HGMMA: "
+                             f"{funcs}")
 
 
 def lm_phase(device):
@@ -1049,6 +1078,7 @@ def lm_phase(device):
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     cfg = configs.get(LM_ARCH)
+    flash_sass()
     t0 = time.perf_counter()
     model = build_model(cfg, tp=1, device=device)
     params = model.init_params(seed=0)              # bf16, from the seed
@@ -1134,18 +1164,28 @@ def lm_phase(device):
                  max_abs_err=f"{stats['max_abs_err']:.3g}",
                  limit_share=f"{stats['limit_share']:.3g}",
                  min_median_abs_want=f"{stats['median_abs_want']:.3g}",
-                 bound_by=row["bound_by"])
+                 bound_by=row["bound_by"],
+                 bound_share=_fmt(row["bound_share"]))
         del capture, calls, per, q, k, v
-    # ---- extra cases: ragged S, f32, at the model's head shapes
+    # ---- extra cases: ragged S, f32, and the bf16 kernel's other code
+    # paths (head dims 64 and 96, no causal mask with S != T)
     g = torch.Generator(device=device).manual_seed(7)
-    for name, qs, ks, dt in (
-            ("ragged S=500", (1, K, G, 500, d), (1, K, 1, 500, d), "bfloat16"),
-            ("f32 (256, 128)", (256, d), (256, d), "float32")):
+    for name, qs, ks, dt, causal in (
+            ("ragged S=500", (1, K, G, 500, d), (1, K, 1, 500, d),
+             "bfloat16", True),
+            ("f32 (256, 128)", (256, d), (256, d), "float32", True),
+            ("d=64 (2, 4, 2, 384, 64)", (2, 4, 2, 384, 64),
+             (2, 4, 1, 384, 64), "bfloat16", True),
+            ("d=96 (1, 8, 4, 300, 96)", (1, 8, 4, 300, 96),
+             (1, 8, 1, 300, 96), "bfloat16", True),
+            ("non-causal (128, 384)", (K, 128, d), (K, 384, d), "bfloat16",
+             False)):
         tdt = getattr(torch, dt)
         q, k, v = (torch.randn(sh, generator=g, device=device).to(tdt)
                    for sh in (qs, ks, ks))
-        st = _flash_check(ops.flash_attention(q, k, v),
-                          ops.flash_attention_plain(q, k, v), dt)
+        st = _flash_check(ops.flash_attention(q, k, v, causal=causal),
+                          ops.flash_attention_plain(q, k, v, causal=causal),
+                          dt)
         _say("check", kernel="flash_attention", case=name.replace(" ", "_"),
              max_abs_err=f"{st['max_abs_err']:.3g}", tol=FLASH_TOL[dt],
              limit_share=f"{st['limit_share']:.3g}",

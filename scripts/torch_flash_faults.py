@@ -5,7 +5,8 @@
 
 For each case of ``FAULTS``, ``src/repro_torch`` and ``chip_smoke.py`` are
 copied into a temporary directory, the fault is written into the copy's
-``kernels/csrc/flash_attention.cu``, and a child process run in the copy
+``kernels/csrc/flash_attention.cu`` (into the bf16 tensor-core kernel,
+``flash_attention_kernel_sm90``), and a child process run in the copy
 builds qwen3-4b at full width from seed 0, captures every layer's kernel
 inputs in a prefill at each of chip_smoke's two shapes (4 x 512 and
 1 x 4096), and counts the layers whose kernel output fails
@@ -24,15 +25,18 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LOOP = "  for (int k0 = 0; k0 < k_end; k0 += kBK) {\n"
-# name -> (text in csrc/flash_attention.cu, its replacement), or None
+EDGE = "const bool edge = "
+MASK = "(!a.causal || key <= row)"
+# name -> [(text in csrc/flash_attention.cu, its replacement), ...]
 FAULTS = {
-    "none": None,
+    "none": [],
     # keys 256..287 never reach any row: only rows from 288 on lose keys
-    "drop_late_tile": (LOOP, LOOP + "    if (k0 == 8 * kBK) continue;\n"),
+    "drop_keys_256_287": [(EDGE, EDGE + "k0 == 256 || "),
+                          (MASK, MASK + " && (key < 256 || key >= 288)")],
     # rows from 256 on also see the key after them
-    "late_diag_offby1": ("(!causal || t <= s)",
-                         "(!causal || t <= s + (s >= 256))"),
+    "late_diag_offby1": [(MASK, "(!a.causal || key <= row + (row >= 256))")],
+    # P.V from a single bf16 P: P_lo dropped
+    "drop_p_lo": [("lo[f] = __byte_perm(", "lo[f] = 0u * __byte_perm(")],
 }
 
 
@@ -92,16 +96,17 @@ def main() -> int:
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
             shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-            if edit is not None:
-                cu = os.path.join(tmp, "src", "repro_torch", "kernels",
-                                  "csrc", "flash_attention.cu")
-                with open(cu) as f:
-                    src = f.read()
-                if src.count(edit[0]) != 1:
+            cu = os.path.join(tmp, "src", "repro_torch", "kernels", "csrc",
+                              "flash_attention.cu")
+            with open(cu) as f:
+                src = f.read()
+            for anchor, planted in edit:
+                if src.count(anchor) != 1:
                     raise RuntimeError(f"{name}: the kernel source changed; "
                                        f"the fault's anchor is gone")
-                with open(cu, "w") as f:
-                    f.write(src.replace(edit[0], edit[1]))
+                src = src.replace(anchor, planted)
+            with open(cu, "w") as f:
+                f.write(src)
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                  "--child", name], cwd=tmp).returncode
         finally:

@@ -11,7 +11,15 @@ grouped-query form the LM's prefill uses (k and v with a group dim of 1).
 
 Tolerances are the reference's own test's: 2e-3 in f32 (summation order)
 and 2e-2 in bf16 (one rounding of the output, plus order).
+
+The bf16 kernel's arithmetic (tiles of 128 keys, online softmax in base
+2, P split into two bf16 halves for the tensor cores) is modelled here in
+plain PyTorch and held to chip_smoke.py's per-element limit: 2 bf16 ulps
+of the larger of the two values plus 1e-5.  Its TMA maps' description
+(``tensor_maps``) is checked on CPU tensors.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +28,7 @@ import torch
 
 from repro.kernels import ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import kernel_layout
+from repro_torch.kernels.flash_attention import kernel_layout, tensor_maps
 from repro_torch.models.carry import tensor_from_numpy
 
 RNG = np.random.default_rng(0)
@@ -127,3 +135,181 @@ def test_flash_attention_kv_group_contract():
     r = torch.zeros((S, 66))[:, :H]
     with pytest.raises(ValueError, match="multiples of 4"):
         kernel_layout(r, r, r, r)
+
+
+# ----------------------------------------------- the bf16 kernel's model --
+
+BK = 128                  # keys per tile of the bf16 kernel
+ULPS, FLOOR = 2, 1e-5     # chip_smoke.py's FLASH_ULPS, FLASH_FLOOR
+
+
+def _bf16_bits(x):
+    """The bf16 the kernel packs from f32 ``x`` by its bits: half a bf16
+    ulp added, the low 16 bits dropped (to nearest, ties away from 0)."""
+    bits = (x.view(torch.int32) + 0x8000) & -0x10000
+    return bits.view(torch.float32)
+
+
+def _kernel_model(q, k, v, causal, split=True):
+    """The bf16 kernel's arithmetic in plain PyTorch: f32 scores of the
+    bf16 inputs (products exact, as on the tensor cores), masked at -1e30,
+    an online softmax over tiles of BK keys with the running max of the
+    raw scores and P = exp2(fma(S, c, -max * c)) for c = log2(e)/sqrt(d)
+    in f32, the normaliser summed from the unrounded f32 P, and P.V as
+    P_hi V + P_lo V in f32 (P_hi = bf16(P), P_lo = P - P_hi rounded by
+    its bits); with ``split=False`` a single bf16 P."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    S, d = q.shape[-2:]
+    T = k.shape[-2]
+    c = torch.tensor(1.4426950408889634, dtype=torch.float32) \
+        / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    m = torch.full((*q.shape[:-1], 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(qf.shape)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, T, BK):
+        kt, vt = kf[..., k0:k0 + BK, :], vf[..., k0:k0 + BK, :]
+        s = torch.matmul(qf, kt.transpose(-1, -2))
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mx) * c)
+        m = mx
+        neg = -mx * c
+        # fma(s, c, neg): one rounding, as float64 holds s * c exactly
+        p = torch.exp2((s.double() * c.double() + neg.double()).float())
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        lo = _bf16_bits(p - hi) if split else torch.zeros_like(p)
+        o = o * alpha + torch.matmul(hi, vt) + torch.matmul(lo, vt)
+    return (o * (1 / l)).to(q.dtype)
+
+
+def _limit_share(got, want):
+    """The largest share of chip_smoke's per-element limit (ULPS bf16 ulps
+    of max(|got|, |want|) plus FLOOR) that an element's error uses."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    _, ex = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.full_like(g, torch.finfo(got.dtype).eps / 2), ex)
+    return float(((g - w).abs() / (ULPS * ulp + FLOOR)).max())
+
+
+MODEL_CASES = [  # q shape, kv shape, causal, input scale
+    ((256, 128), (256, 128), True, 1.0),
+    ((256, 128), (256, 128), True, 0.25),
+    ((256, 128), (256, 128), True, 3.0),
+    ((200, 64), (200, 64), True, 1.0),
+    ((300, 96), (300, 96), True, 1.0),
+    ((128, 128), (384, 128), False, 1.0),
+    ((130, 96), (250, 96), False, 1.0),
+    ((1, 2, 3, 257, 128), (1, 2, 1, 257, 128), True, 1.0),
+    ((2, 2, 2, 150, 64), (2, 2, 1, 150, 64), False, 1.0),
+]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal,scale", MODEL_CASES)
+def test_kernel_model_within_the_element_limit(shape_q, shape_kv, causal,
+                                               scale):
+    """The bf16 kernel's arithmetic against the plain version and the
+    reference oracle: every element within 2 bf16 ulps plus 1e-5, at head
+    dims 64, 96 and 128, causal and not, ragged S and T, S != T, and the
+    grouped (B, K, G, S, d) form."""
+    rng = np.random.default_rng(len(shape_q) * 1000 + shape_q[-2])
+    arrs = [np.asarray(jnp.asarray(scale * rng.normal(size=sh),
+                                   jnp.bfloat16))
+            for sh in (shape_q, shape_kv, shape_kv)]
+    tq, tk, tv = (tensor_from_numpy(a, "cpu") for a in arrs)
+    got = _kernel_model(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16
+    assert _limit_share(got, ops.flash_attention_plain(
+        tq, tk, tv, causal=causal)) <= 1
+    expand = lambda a: np.broadcast_to(a, arrs[0].shape[:-2] + a.shape[-2:])
+    want = torch.from_numpy(_ref(arrs[0], expand(arrs[1]), expand(arrs[2]),
+                                 causal)).to(torch.bfloat16)
+    assert _limit_share(got, want) <= 1
+
+
+def test_single_bf16_p_exceeds_the_element_limit():
+    """Why the kernel splits P: with one bf16 P in the P.V product (what a
+    plain bf16 flash kernel does), the same inputs go over the limit."""
+    rng = np.random.default_rng(3)
+    tq, tk, tv = (torch.from_numpy(rng.normal(size=(512, 128)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    want = ops.flash_attention_plain(tq, tk, tv)
+    assert _limit_share(_kernel_model(tq, tk, tv, True), want) <= 1
+    assert _limit_share(_kernel_model(tq, tk, tv, True, split=False),
+                        want) > 1
+
+
+# --------------------------------------------- the bf16 kernel's TMA maps --
+
+def lead_coords(lead, dims, n):
+    """The coordinates (leading dims 2, 1, 0) of the boxes that the
+    kernel loads from each map for leading index ``n`` of q, by its rule:
+    a dim of size 1 in a map is read at 0."""
+    idx = (n // (lead[2] * lead[1]), n // lead[2] % lead[1], n % lead[2])
+    return [[idx[i] if dims[5 * t + 4 - i] > 1 else 0 for i in (2, 1, 0)]
+            for t in range(3)]
+
+
+def test_tensor_maps_of_the_model_views():
+    """q (B, S, K, G, H) as the view (B, K, G, S, H) and k (B, S, K, H) as
+    (B, K, 1, S, H): each map is (H, S, G, K, B) over the tensor's own
+    strides in bytes; k's group dim has size 1 (read at coordinate 0, so
+    each kv head serves its G query heads), with a stride past the rest."""
+    B, S, K, G, H = 2, 24, 3, 4, 128
+    qv = torch.zeros((B, S, K, G, H), dtype=torch.bfloat16).permute(
+        0, 2, 3, 1, 4)
+    kv = torch.zeros((B, S, K, H), dtype=torch.bfloat16).permute(
+        0, 2, 1, 3).unsqueeze(2)
+    out = torch.empty_like(qv)
+    lead, dims, strides, out_strides = tensor_maps(qv, kv, kv, out)
+    assert lead == [B, K, G]
+    assert dims[:5] == [H, S, G, K, B]
+    assert strides[:4] == [2 * K * G * H, 2 * H, 2 * G * H, 2 * S * K * G * H]
+    assert dims[5:10] == dims[10:] == [H, S, 1, K, B]
+    assert strides[4:8] == strides[8:] == [2 * K * H, 2 * S * K * H, 2 * H,
+                                           2 * S * K * H]
+    assert out_strides == [S * K * G * H, G * H, H, K * G * H]
+    n = (1 * K + 2) * G + 3                   # batch 1, kv head 2, group 3
+    assert lead_coords(lead, dims, n) == [[3, 2, 1], [0, 2, 1], [0, 2, 1]]
+
+
+@pytest.mark.parametrize("S,T", [(500, 500), (1, 7), (130, 384)])
+def test_tensor_maps_of_dense_tensors(S, T):
+    """Contiguous (B, heads, S, d) tensors merge into one leading dim;
+    ragged S and T stay the maps' row counts (TMA zero-fills past them,
+    the kernel masks); a dim of size 1 gets a stride past the dims before
+    it, and the leading index runs over the merged dim."""
+    q = torch.zeros((2, 3, S, 96), dtype=torch.bfloat16)
+    k = torch.zeros((2, 3, T, 96), dtype=torch.bfloat16)
+    lead, dims, strides, out_strides = tensor_maps(q, k, k, q)
+    assert lead == [1, 1, 6]
+    assert dims == [96, S, 6, 1, 1] + [96, T, 6, 1, 1] * 2
+    for rows, st in ((S, strides[:4]), (T, strides[4:8]), (T, strides[8:])):
+        assert st == [2 * 96, 2 * 96 * rows] + [2 * 96 * rows * 6] * 2
+    assert out_strides == [0, 0, S * 96, 96]
+    assert lead_coords(lead, dims, 4) == [[4, 0, 0]] * 3
+
+
+def test_tensor_maps_raise_on_unaligned_bf16_strides():
+    """TMA takes strides in multiples of 16 bytes: 8 bf16 elements."""
+    base = torch.zeros((64, 132), dtype=torch.bfloat16)
+    bad = base[:, :128]                      # rows 264 bytes apart
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tensor_maps(bad, bad, bad, torch.empty_like(bad))
+    good = torch.zeros((64, 136), dtype=torch.bfloat16)[:, :128]
+    lead, dims, strides, _ = tensor_maps(good, good, good, good)
+    assert dims[:2] == [128, 64] and strides[0] == 272
+
+
+def test_bf16_bits_round_to_nearest():
+    """The kernel's P_lo rounding by bits (half an ulp added, low half
+    dropped) is round to nearest, away from zero only at exact ties."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=100_000).astype(np.float32) * 1e-3)
+    tie = (x.view(torch.int32) & 0xFFFF) == 0x8000
+    got = _bf16_bits(x)
+    assert torch.equal(got[~tie], x[~tie].to(torch.bfloat16).float())
+    assert torch.equal(got.to(torch.bfloat16).float(), got)
