@@ -16,7 +16,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
    rle_grouped_agg against their plain PyTorch versions on the card, on
    the payloads of a real lineitem container: bitunpack bit-exact for
    every width 1..32 with and without base; rle_grouped_agg counts
-   exact, sums within rtol 1e-5;
+   exact, sums within rtol 1e-5, on one container's runs and on every
+   lineitem container's runs in one call (the whole scan of Q4, also
+   against numpy); then seg_preagg's edge cases on both of its routes
+   (shared-memory and global; ``seg_preagg_case_checks``) and
+   rle_grouped_agg's on lists of segments (``rle_case_checks``), each
+   against the plain version on the card;
 4. the main path at TPC-H SF1 cardinalities (6,000,000 lineitem and
    1,500,000 orders rows from ``star_schema(seed=0)``) in the layout of
    ``benchmarks/cstore_queries.py::build_db`` (4 nodes, k_safety=0,
@@ -26,12 +31,13 @@ Phases, one line each (any failure raises and the script exits non-zero):
    oracle (counts and int sums exact, float sums and avgs rtol 1e-4).
    The kernels' launch counters are zeroed just before and read just
    after: every kernel must have launched (each query's line shows its
-   launches as bitunpack/seg_preagg/rle_grouped_agg, cold and warm).
+   launches as bitunpack/seg_preagg/rle_grouped_agg, cold and warm), and
+   Q4 launches rle_grouped_agg exactly once cold and once warm.
    seg_preagg is then held against its plain version on the very inputs
    the main path gave it, once per shape (query, rows, domain): ints
    exact, f32 sums within rtol 1e-5 (atomics reorder the sums).  Then
    one more warm run of each query under torch.profiler gives its
-   device time and busy share;
+   device time (device kernels only) and busy share;
 5. the kernel entry point ``repro_torch.kernels.ops`` at full size on
    the same database (the reference reaches these four kernels only
    through its ``kernels.ops``): ``rle_filter_agg`` over the RLE
@@ -80,7 +86,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape (``ms``,
 ``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
-``kernel_device_ms``: the kernel alone in a torch.profiler trace;
+``kernel_device_ms``: the kernels of one call in a torch.profiler trace
+(for seg_preagg and rle_grouped_agg the output-initialising kernel
+included, and ``fold_device_ms`` without it);
 ``bound_ms``: the bytes each call must move on its inputs over the
 H100's 3.35 TB/s, for ``flash_attention`` the larger of that and its
 flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
@@ -175,12 +183,13 @@ def _profile(fn, reps: int = 1, kernels_only: bool = False):
     return (total or None), by_name
 
 
-def _kernel_device_ms(fn, kernel: str):
-    """Device ms per call of the named CUDA kernel alone (without the
-    wrapper's output fills and launch gaps), or None when the trace holds
-    no device time."""
+def _kernel_device_ms(fn, kernel: str, exclude: str = None):
+    """Device ms per call of the CUDA kernels whose names hold ``kernel``
+    (and not ``exclude``), without launch gaps and without the torch ops
+    around them, or None when the trace holds no device time."""
     _, by_name = _profile(fn, reps=20)
-    return sum(v for k, v in by_name.items() if kernel in k) or None
+    return sum(v for k, v in by_name.items() if kernel in k and not (
+        exclude and exclude in k)) or None
 
 
 def _fmt(ms) -> str:
@@ -420,7 +429,7 @@ def kernel_checks(db, device):
                 0, rv.reshape(-1).long(), rl.reshape(-1))),
         "kernel_device_ms": _kernel_device_ms(
             lambda: ops.rle_grouped_agg(rv, rl, domain=domain),
-            "rle_grouped_agg_kernel"),
+            "rle_grouped_agg"),
         "shape": f"runs {tuple(rv.shape)} domain={domain}"})
     _say("kernel", name="rle_grouped_agg", counts_exact=True,
          sum_max_abs_err=f"{err:.3g}", ms=f"{rows[-1]['ms']:.4f}",
@@ -428,7 +437,278 @@ def kernel_checks(db, device):
          plain_ms=f"{rows[-1]['plain_ms']:.4f}",
          library_ms=f"{rows[-1]['library_ms']:.4f}",
          bound_ms=f"{rows[-1]['bound_ms']:.4f}")
+    rows.append(rle_scan_row(db, device))
     return rows
+
+
+def rle_scan_row(db, device) -> dict:
+    """``rle_grouped_agg_many`` over the RLE l_shipdate runs of every
+    lineitem container in one call (Q4's scan), against its plain version
+    on the card and numpy's count of l_shipdate (the tail padding, which
+    repeats each container's last value, subtracted).  The library
+    yardstick is ``index_add_`` over the runs concatenated outside the
+    timed call."""
+    import torch
+    from repro_torch.core.encodings import to_device
+    from repro_torch.kernels import ops
+    domain = 365
+    li = _containers(db, "lineitem_super")
+    segs, host, pads = [], np.zeros(domain, np.int64), 0
+    for c in li:
+        col = c.columns["l_shipdate"]
+        segs.append((to_device(col.arrays["run_values"], device),
+                     to_device(col.arrays["run_lengths"], device)))
+        sd = col.decode()
+        host += np.bincount(sd, minlength=domain)
+        pad = col.n_blocks * col.block_rows - col.n_rows
+        host[sd[-1]] += pad
+        pads += pad
+    got = ops.rle_grouped_agg_many(segs, domain=domain)
+    want = ops.rle_grouped_agg_many_plain(segs, domain=domain)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(got[3], want[3])
+            and torch.allclose(got[1], want[1], rtol=1e-5, atol=0)):
+        raise AssertionError("rle_grouped_agg over the whole scan differs "
+                             "from its plain version")
+    if not np.array_equal(got[0].cpu().numpy(), host):
+        raise AssertionError("rle_grouped_agg over the whole scan: counts "
+                             "differ from numpy")
+    keys = torch.cat([rv.reshape(-1) for rv, _ in segs]).long()
+    lens = torch.cat([rl.reshape(-1) for _, rl in segs])
+    n_runs = keys.numel()
+    fn = lambda: ops.rle_grouped_agg_many(segs, domain=domain)
+    row = {"name": "rle_grouped_agg", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rle_grouped_agg.cu",
+           "replaces": "src/repro/kernels/rle_scan_agg.py:131",
+           "max_abs_err": float((got[1] - want[1]).abs().max()),
+           "ms": _time_ms(fn),
+           "plain_ms": _time_ms(lambda: ops.rle_grouped_agg_many_plain(
+               segs, domain=domain)),
+           "bound_ms": _bound_ms(n_runs * 8 + 4 * domain * 4),
+           "bound_by": "bytes",
+           "library_ms": _time_ms(lambda: torch.zeros(
+               domain, dtype=torch.int32, device=device).index_add_(
+                   0, keys, lens)),
+           "kernel_device_ms": _kernel_device_ms(fn, "rle_grouped_agg"),
+           "fold_device_ms": _kernel_device_ms(fn, "rle_grouped_agg",
+                                               exclude="init"),
+           "shape": f"whole scan: {len(segs)} containers, {n_runs} runs, "
+                    f"domain={domain}"}
+    _say("kernel", name="rle_grouped_agg", scan="whole", containers=len(segs),
+         runs=n_runs, padding_rows=pads, counts_exact=True,
+         ms=f"{row['ms']:.4f}", kernel_device_ms=_fmt(row["kernel_device_ms"]),
+         fold_device_ms=_fmt(row["fold_device_ms"]),
+         plain_ms=f"{row['plain_ms']:.4f}",
+         library_ms=f"{row['library_ms']:.4f}",
+         bound_ms=f"{row['bound_ms']:.6f}")
+    return row
+
+
+# the aggregates of the edge cases: count, and sum / min / max of an int32
+# and of an f32 column
+CASE_AGGS = (("n", "*", "count"), ("si", "i", "sum"), ("mni", "i", "min"),
+             ("mxi", "i", "max"), ("sf", "f", "sum"), ("mnf", "f", "min"),
+             ("mxf", "f", "max"))
+
+
+def _seg_equal(got, want, aggs, what) -> float:
+    """Ints, counts, min and max exactly; f32 sums and avgs within rtol
+    1e-5 (atomics reorder the sums).  Returns the largest f32 |err|."""
+    import torch
+    kinds = {name: kind for name, _, kind in aggs}
+    err = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"seg_preagg {what} {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if g.dtype == torch.int32 or kinds.get(name) in ("min", "max"):
+            if not torch.equal(g, w):
+                raise AssertionError(f"seg_preagg {what} {name}")
+        else:
+            if not torch.allclose(g, w, rtol=1e-5, atol=0):
+                raise AssertionError(f"seg_preagg {what} {name}")
+            err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def _f32_minmax_bits(keys, valid, x, domain: int, kind: str) -> np.ndarray:
+    """numpy reference of an f32 min or max lane as bit patterns, in
+    float_atomics.cuh's total order (-0.0 below +0.0), which the plain
+    version's scatter_reduce leaves to the order of its updates: each
+    float's bits map to an int that orders like the float, the per-key
+    min/max runs on those ints, and the winner maps back."""
+    def flip(b):                            # an involution
+        return np.where(b < 0, b ^ np.int32(0x7FFFFFFF), b)
+
+    k = np.clip(np.asarray(keys, np.int64), 0, domain - 1)
+    ok = np.asarray(valid, bool)
+    ordered = flip(np.asarray(x, np.float32).view(np.int32))[ok]
+    start = np.float32(np.inf if kind == "min" else -np.inf)
+    acc = np.full(domain, flip(np.array([start]).view(np.int32))[0],
+                  np.int32)
+    (np.minimum if kind == "min" else np.maximum).at(acc, k[ok], ordered)
+    return flip(acc)
+
+
+def _f32_order_check(got, keys, valid, vals, domain, aggs, what) -> None:
+    """Every f32 min/max lane of ``got`` bit for bit against
+    ``_f32_minmax_bits``: the sign of a zero included."""
+    import torch
+    cpu = lambda a: a.cpu().numpy() if torch.is_tensor(a) else a
+    for name, col, kind in aggs:
+        if kind not in ("min", "max") or \
+                not vals[col].dtype.is_floating_point:
+            continue
+        want = _f32_minmax_bits(cpu(keys), cpu(valid), cpu(vals[col]),
+                                domain, kind)
+        g = got[name].view(torch.int32).cpu().numpy()
+        if not np.array_equal(g, want):
+            bad = int(np.flatnonzero(g != want)[0])
+            raise AssertionError(
+                f"seg_preagg {what} {name}: key {bad} bits "
+                f"{int(g[bad]) & 0xFFFFFFFF:#010x}, in -0.0 < +0.0 order "
+                f"{int(want[bad]) & 0xFFFFFFFF:#010x}")
+
+
+def seg_preagg_case_checks(device) -> None:
+    """Phase 3: both ``seg_preagg`` routes against the plain version on the
+    card, at the shared route's domain limit for CASE_AGGS and one key
+    past it (the global route), and at domain 100, on: random keys with
+    negatives and keys >= domain, sorted keys (the main path's layout),
+    all rows invalid, int32 sums that wrap, f32 min/max over -0.0, +0.0
+    and +-inf, keys/valid/values sliced at an odd element offset, slices
+    whose pointers disagree on alignment, n not a multiple of 16 (every
+    case: n = 1,000,003, and n = 5), and 32 aggregates at domain 100 and
+    at their own limit and one past it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.seg_preagg import SMEM_BYTES, \
+        seg_preagg_replicas
+    rng = np.random.default_rng(3)
+    limit = SMEM_BYTES // (4 * len(CASE_AGGS))      # 1 + 6 lanes
+    if (ops.seg_preagg_route(limit, 6), ops.seg_preagg_route(limit + 1, 6)) \
+            != ("shared", "global"):
+        raise AssertionError(f"seg_preagg_route at {limit} / {limit + 1}")
+    n = 1_000_003
+    t = lambda a: torch.as_tensor(a, device=device)
+
+    def case(name, keys, valid, i, f, domain, aggs=CASE_AGGS, extra=None):
+        vals = {"i": t(i), "f": t(f), **(extra or {})}
+        got = ops.seg_preagg(t(keys), t(valid), vals, domain, aggs)
+        want = ops.seg_preagg_plain(t(keys), t(valid), vals, domain, aggs)
+        err = _seg_equal(got, want, aggs, f"{name} domain={domain}")
+        _f32_order_check(got, keys, valid, vals, domain, aggs,
+                         f"{name} domain={domain}")
+        m = sum(kind != "count" for _, _, kind in aggs)
+        _say("check", kernel="seg_preagg", case=name, n=len(keys),
+             domain=domain, aggs=m, route=ops.seg_preagg_route(domain, m),
+             replicas=seg_preagg_replicas(domain, m), valid=int(valid.sum()),
+             exact=True, f32_minmax_bitwise=True,
+             f32_sum_max_abs_err=f"{err:.3g}")
+
+    ivals = lambda k: rng.integers(-2**31, 2**31, k, dtype=np.int64) \
+        .astype(np.int32)
+    # small whole numbers: every f32 sum here is exact in any order
+    fvals = lambda k: rng.integers(0, 16, k).astype(np.float32)
+    for domain in (100, limit, limit + 1):
+        keys = rng.integers(-3, domain + 3, n).astype(np.int32)
+        valid = rng.random(n) < 0.9
+        case("random", keys, valid, ivals(n), fvals(n), domain)
+        case("sorted", np.sort(keys), rng.random(n) < 0.95, ivals(n),
+             fvals(n), domain)
+        case("all_invalid", keys, np.zeros(n, bool), ivals(n), fvals(n),
+             domain)
+        few = rng.integers(0, 3, n).astype(np.int32)   # 3 hot keys
+        case("int_wrap", few, np.ones(n, bool),
+             (2**30 + rng.integers(0, 1000, n)).astype(np.int32),
+             fvals(n), domain)
+        edges = np.array([-0.0, 0.0, np.inf, -np.inf, 1.5, -2.5],
+                         np.float32)
+        e = edges[rng.integers(0, edges.size, n)]
+        e_aggs = CASE_AGGS[:5] + (("mne", "e", "min"), ("mxe", "e", "max"))
+        case("f32_signed_zero_inf", keys % 7, valid, ivals(n), fvals(n),
+             domain, e_aggs, {"e": t(e)})
+        zeros = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        case("f32_zeros_only", keys % 5, valid, ivals(n), fvals(n), domain,
+             e_aggs, {"e": t(zeros)})
+        # slices of longer tensors: one odd element offset for all, then
+        # offsets that disagree (the scalar path)
+        K, V = t(rng.integers(-3, domain + 3, n + 8).astype(np.int32)), \
+            t(rng.random(n + 8) < 0.9)
+        I, F = t(ivals(n + 8)), t(fvals(n + 8))
+        for label, (ok, ov, oi, of) in (("odd_offset", (1, 1, 1, 1)),
+                                        ("offsets_disagree", (1, 3, 2, 5))):
+            got = ops.seg_preagg(K[ok:ok + n], V[ov:ov + n],
+                                 {"i": I[oi:oi + n], "f": F[of:of + n]},
+                                 domain, CASE_AGGS)
+            want = ops.seg_preagg_plain(K[ok:ok + n], V[ov:ov + n],
+                                        {"i": I[oi:oi + n],
+                                         "f": F[of:of + n]},
+                                        domain, CASE_AGGS)
+            err = _seg_equal(got, want, CASE_AGGS, f"{label} {domain}")
+            _f32_order_check(got, K[ok:ok + n], V[ov:ov + n],
+                             {"i": I[oi:oi + n], "f": F[of:of + n]},
+                             domain, CASE_AGGS, f"{label} {domain}")
+            _say("check", kernel="seg_preagg", case=label, n=n,
+                 domain=domain, route=ops.seg_preagg_route(domain, 6),
+                 offsets=f"{ok},{ov},{oi},{of}", exact=True,
+                 f32_minmax_bitwise=True,
+                 f32_sum_max_abs_err=f"{err:.3g}")
+        case("n=5", keys[:5], valid[:5], ivals(5), fvals(5), domain)
+    # 32 aggregates: every kind on both lanes, round robin
+    kinds = ("sum", "min", "max")
+    aggs32 = (("n", "*", "count"),) + tuple(
+        (f"a{j}", "if"[j % 2], kinds[j % 3]) for j in range(32))
+    lim32 = SMEM_BYTES // (4 * 33)
+    for domain in (100, lim32, lim32 + 1):
+        keys = rng.integers(-3, domain + 3, n).astype(np.int32)
+        case("32_aggs", keys, rng.random(n) < 0.9, ivals(n), fvals(n),
+             domain, aggs32)
+
+
+def rle_case_checks(device) -> None:
+    """Phase 3: ``rle_grouped_agg_many`` against its plain version on the
+    card over lists of segments with empty segments, runs of length 0,
+    keys outside [lo, hi] and outside [0, domain), with and without
+    values: one CTA, many CTAs, more segments than one call takes (70),
+    and a domain whose table does not fit in shared memory."""
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+
+    def seg(n, domain, with_values):
+        rv = torch.as_tensor(rng.integers(-4, domain + 4, n)
+                             .astype(np.int32), device=device)
+        rl = torch.as_tensor(rng.integers(0, 9, n).astype(np.int32),
+                             device=device)
+        # whole numbers: every f32 sum here is exact in any order
+        v = torch.as_tensor(rng.integers(-100, 100, n).astype(np.float32),
+                            device=device) if with_values else None
+        return rv, rl, v
+
+    for label, sizes, domain in (
+            ("one_cta", (100, 0, 2000, 7), 365),
+            ("many_ctas", (40_000, 0, 90_000, 3), 365),
+            ("70_segments", tuple(rng.integers(0, 300, 70)), 365),
+            ("wide_domain", (50_000, 0, 30_000), 20_000)):
+        for with_values in (False, True):
+            segs = [seg(int(k), domain, with_values) for k in sizes]
+            for lo, hi in ((-3.0e38, 3.0e38), (5.0, domain - 10.0)):
+                got = ops.rle_grouped_agg_many(segs, domain=domain, lo=lo,
+                                               hi=hi)
+                want = ops.rle_grouped_agg_many_plain(segs, domain=domain,
+                                                      lo=lo, hi=hi)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])
+                        and torch.equal(got[2], want[2])
+                        and torch.equal(got[3], want[3])):
+                    raise AssertionError(f"rle_grouped_agg {label} values="
+                                         f"{with_values} [{lo}, {hi}]")
+        _say("check", kernel="rle_grouped_agg", case=label,
+             segments=len(sizes), runs=int(sum(sizes)), domain=domain,
+             exact=True)
 
 
 class SegCapture:
@@ -525,13 +805,14 @@ def seg_preagg_rows(capture, launched: int, device):
             lib_dtype = lib_in.dtype
         else:
             lib_in, lib_dtype = valid.to(torch.int32), torch.int32
+        call = lambda: ops.seg_preagg(keys, valid, values, domain, aggs)
+        route = ops.seg_preagg_route(domain, n_out - 1)
         row = {
             "name": "seg_preagg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/seg_preagg.cu",
             "replaces": "src/repro/kernels/seg_preagg.py:123",
             "launches": count, "max_abs_err": err,
-            "ms": _time_ms(lambda: ops.seg_preagg(keys, valid, values,
-                                                  domain, aggs)),
+            "ms": _time_ms(call),
             "plain_ms": _time_ms(lambda: ops.seg_preagg_plain(
                 keys, valid, values, domain, aggs)),
             "bound_ms": _bound_ms(_seg_bound_bytes(valid, len(cols),
@@ -540,17 +821,20 @@ def seg_preagg_rows(capture, launched: int, device):
             "library_ms": _time_ms(lambda: torch.zeros(
                 domain, dtype=lib_dtype, device=device).index_add_(
                     0, kidx, lib_in)),
-            "kernel_device_ms": _kernel_device_ms(
-                lambda: ops.seg_preagg(keys, valid, values, domain, aggs),
-                "seg_preagg_kernel"),
+            "kernel_device_ms": _kernel_device_ms(call, "seg_preagg"),
+            "fold_device_ms": _kernel_device_ms(call, "seg_preagg",
+                                                exclude="init"),
             "shape": f"{query}: n={n} domain={domain} valid="
                      f"{int(valid.sum())} aggs="
-                     + "+".join(kind for _, _, kind in aggs)}
+                     + "+".join(kind for _, _, kind in aggs)
+                     + f" route={route}"}
         rows.append(row)
         _say("kernel", name="seg_preagg", query=query, n=n, domain=domain,
-             valid=int(valid.sum()), launches=count, ints_exact=True,
-             f32_sum_max_abs_err=f"{err:.3g}", ms=f"{row['ms']:.4f}",
+             valid=int(valid.sum()), route=route, launches=count,
+             ints_exact=True, f32_sum_max_abs_err=f"{err:.3g}",
+             ms=f"{row['ms']:.4f}",
              kernel_device_ms=_fmt(row["kernel_device_ms"]),
+             fold_device_ms=_fmt(row["fold_device_ms"]),
              plain_ms=f"{row['plain_ms']:.4f}",
              library_ms=f"{row['library_ms']:.4f}",
              bound_ms=f"{row['bound_ms']:.6f}")
@@ -863,9 +1147,14 @@ def kernel_api_phase(db, fact, dim, capture, device):
 
 # ------------------------------------------------------------ main path --
 
+def _is_cuda(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
+
+
 def _sync(device) -> None:
     import torch
-    if torch.device(device).type == "cuda":
+    if _is_cuda(device):
         torch.cuda.synchronize()
 
 
@@ -892,6 +1181,10 @@ def run_main_path(db, fact, dim, device, capture=None) -> dict:
             launched.append("/".join(f"{after[k] - before[k]}"
                                      for k in MAIN_KERNELS))
             check(name, res, fact, dim)
+            rle = after["rle_grouped_agg"] - before["rle_grouped_agg"]
+            if name == "Q4" and _is_cuda(device) and rle != 1:
+                raise AssertionError(f"Q4 launched rle_grouped_agg {rle} "
+                                     f"times, expected once per run")
         st = qb.stats
         if db.epochs.n_pinned() != 0:
             raise AssertionError(f"{name} leaked an epoch pin")
@@ -909,7 +1202,7 @@ def profile_queries(db, warm) -> None:
     time, the share of the untraced warm wall time the device was busy,
     and the kernel that took most of the device time."""
     for name, qb in make_queries(db).items():
-        dev_ms, by_name = _profile(qb.collect)
+        dev_ms, by_name = _profile(qb.collect, kernels_only=True)
         if dev_ms is None:
             _say("profile", name=name, device_ms="not measured")
             continue
@@ -1310,6 +1603,8 @@ def main() -> int:
 
     decode_checks(db, device)
     rows = kernel_checks(db, device)
+    seg_preagg_case_checks(device)
+    rle_case_checks(device)
 
     with SegCapture() as capture:
         ops.reset_launch_counts()

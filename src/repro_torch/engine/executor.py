@@ -41,6 +41,7 @@ from . import operators as ops
 from .expr import Expr
 
 KIND_VALID = "valid"      # per-(container, as_of) visibility blocks
+KIND_RLE_RUNS = "rle_runs"  # flat device runs of an RLE column
 KIND_BUILD = "build"      # per-(dim_table, as_of, join-sig) build sides
 
 
@@ -115,6 +116,24 @@ def cached_decoded(db: VerticaDB, c: ROSContainer,
         return decode_torch(col, db.device, enc)
 
     return cache.get_or_put(c.id, name, KIND_DECODED, _decode, device_bytes)
+
+
+def cached_runs(db: VerticaDB, c: ROSContainer, name: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat device (run_values, run_lengths) of one RLE column, uploaded
+    once per container and kept in the block cache: ROS containers are
+    immutable, and the tuple mover's replacements carry new ids."""
+    col = c.columns[name]
+
+    def make():
+        return (to_device(col.arrays["run_values"].reshape(-1), db.device),
+                to_device(col.arrays["run_lengths"].reshape(-1), db.device))
+
+    cache: Optional[BlockCache] = getattr(db, "block_cache", None)
+    if cache is None:
+        return make()
+    return cache.get_or_put(c.id, name, KIND_RLE_RUNS, make,
+                            lambda v: sum(device_bytes(t) for t in v))
 
 
 def _valid_blocks_np(store, c: ROSContainer, as_of: int,

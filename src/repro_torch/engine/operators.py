@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.encodings import EncodedColumn, Encoding, decode_torch, to_device
+from ..core.encodings import decode_torch
 from ..core.storage import ROSContainer
 from ..kernels import ops as kops
 from .expr import Expr
@@ -167,16 +167,16 @@ def groupby_sort(keys: torch.Tensor, valid: torch.Tensor,
     return out
 
 
-def groupby_rle(key_col: EncodedColumn, valid_counts: np.ndarray,
-                domain: int, device) -> Dict[str, torch.Tensor]:
-    """COUNT(*) GROUP BY key directly on RLE-encoded data: each run
-    contributes (value, length) without decoding a single row -- the
-    §6.1 'operate directly on encoded data' fast path, run by the
-    ``rle_grouped_agg`` kernel (its int32 count)."""
-    assert key_col.encoding == Encoding.RLE
-    count, _, _, _ = kops.rle_grouped_agg(
-        to_device(key_col.arrays["run_values"], device),
-        to_device(key_col.arrays["run_lengths"], device), domain=domain)
+def groupby_rle_runs(runs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                     domain: int) -> Dict[str, torch.Tensor]:
+    """COUNT(*) GROUP BY key directly on RLE runs: each run contributes
+    (value, length) without decoding a single row -- the §6.1 'operate
+    directly on encoded data' fast path.  ``runs`` holds the device
+    (run_values, run_lengths) of many containers, folded by one
+    ``rle_grouped_agg`` launch into one int32 count lane (the caller
+    keeps the rows of one call below 2^31)."""
+    count, _, _, _ = kops.rle_grouped_agg_many(
+        [(rv, rl, None) for rv, rl in runs], domain=domain)
     return {"group_count": count}
 
 

@@ -39,6 +39,7 @@ from . import operators as ops
 from .sip import sip_filter
 
 _PACK_LIMIT = 1 << 31   # packed keys live in device int32
+_RLE_CALL_ROWS = 1 << 31   # rows one rle_grouped_agg call may count
 
 
 @dataclasses.dataclass
@@ -360,7 +361,10 @@ def _rle_groupby(db: VerticaDB, q: LogicalQuery, plan, as_of: int
                  ) -> Optional[Dict[str, np.ndarray]]:
     """COUNT GROUP BY key straight off RLE runs (§6.1 'operate directly on
     encoded data'). Requires no pending deletes and fully-committed
-    containers; otherwise returns None and the caller decodes."""
+    containers; otherwise returns None (before anything launches) and the
+    caller decodes.  Every container's cached device runs go to one
+    ``rle_grouped_agg`` call (more only when one call's rows would reach
+    ``_RLE_CALL_ROWS``), and the counts come back in one copy."""
     from ..planner.planner import _domain_estimate
 
     group = q.group_by[0]
@@ -368,7 +372,7 @@ def _rle_groupby(db: VerticaDB, q: LogicalQuery, plan, as_of: int
     dom = _domain_estimate(db, proj, group)
     if dom is None or dom > plan.dense_domain_limit:
         return None
-    total = np.zeros(dom, np.int64)
+    conts = []
     for host, owner in plan.sources:
         store = db.nodes[host].stores[owner]
         if store.wos.n_rows:
@@ -378,17 +382,33 @@ def _rle_groupby(db: VerticaDB, q: LogicalQuery, plan, as_of: int
                 return None
             if c.columns[group].encoding != Encoding.RLE:
                 return None
-            counts = ops.groupby_rle(c.columns[group],
-                                     c.smas[group].counts, dom, db.device)
-            # subtract tail-block padding (pad value = last value, the value
-            # of the last run of nonzero length)
-            total += _np(counts["group_count"])
-            colenc = c.columns[group]
-            pad = colenc.n_blocks * colenc.block_rows - c.n_rows
-            if pad and c.n_rows:
-                rv = colenc.arrays["run_values"].reshape(-1)
-                rl = colenc.arrays["run_lengths"].reshape(-1)
-                total[int(rv[np.flatnonzero(rl)[-1]])] -= pad
+            conts.append(c)
+    # the reference counts each container in int32 and sums the counts in
+    # int64: one call counts into one int32 lane, so calls stay below
+    # 2^31 rows (block padding included) and their counts add in int64
+    calls, rows = [], _RLE_CALL_ROWS
+    for c in conts:
+        col = c.columns[group]
+        n = col.n_blocks * col.block_rows
+        if rows + n >= _RLE_CALL_ROWS:
+            calls.append([])
+            rows = 0
+        calls[-1].append(fused_exec.cached_runs(db, c, group))
+        rows += n
+    total = np.zeros(dom, np.int64)
+    if calls:
+        counts = [ops.groupby_rle_runs(runs, dom)["group_count"]
+                  for runs in calls]
+        total += _np(torch.stack(counts)).astype(np.int64).sum(0)
+    for c in conts:
+        # subtract tail-block padding (pad value = last value, the value
+        # of the last run of nonzero length)
+        colenc = c.columns[group]
+        pad = colenc.n_blocks * colenc.block_rows - c.n_rows
+        if pad and c.n_rows:
+            rv = colenc.arrays["run_values"].reshape(-1)
+            rl = colenc.arrays["run_lengths"].reshape(-1)
+            total[int(rv[np.flatnonzero(rl)[-1]])] -= pad
     sel = total > 0
     out = {group: np.flatnonzero(sel), "group_count": total[sel]}
     for name, _, kind in q.aggs:

@@ -115,7 +115,9 @@ def stream_ptr(device) -> int:
     points take."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors, dtypes: Optional[tuple] = None,

@@ -30,8 +30,9 @@ from .delta_decode import delta_decode, delta_decode_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .hash_groupby import onehot_groupby, onehot_groupby_plain
 from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_plain,
-                           rle_grouped_agg, rle_grouped_agg_plain)
-from .seg_preagg import seg_preagg, seg_preagg_plain
+                           rle_grouped_agg, rle_grouped_agg_many,
+                           rle_grouped_agg_many_plain, rle_grouped_agg_plain)
+from .seg_preagg import seg_preagg, seg_preagg_plain, seg_preagg_route
 from .sip_probe import semijoin_probe, semijoin_probe_plain
 
 # kernel name -> (wrapper module, its launch counter)
@@ -60,6 +61,7 @@ __all__ = ["bitunpack", "bitunpack_plain", "delta_decode",
            "delta_decode_plain", "flash_attention", "flash_attention_plain",
            "launch_counts", "onehot_groupby",
            "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
-           "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_plain",
-           "seg_preagg", "seg_preagg_plain", "semijoin_probe",
-           "semijoin_probe_plain"]
+           "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_many",
+           "rle_grouped_agg_many_plain", "rle_grouped_agg_plain",
+           "seg_preagg", "seg_preagg_plain", "seg_preagg_route",
+           "semijoin_probe", "semijoin_probe_plain"]

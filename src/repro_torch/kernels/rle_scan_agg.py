@@ -11,7 +11,11 @@ an exact count (the reference's own CPU path counts in int32 too).
 * ``rle_grouped_agg``       -- the wrapper: the CUDA kernel
   (csrc/rle_grouped_agg.cu) for CUDA tensors, the plain version for CPU
   tensors.
-* ``rle_grouped_agg_plain`` -- the same function in plain PyTorch.
+* ``rle_grouped_agg_many``  -- the same over a list of run segments (one
+  per container), as if concatenated: one kernel launch for every
+  ``_MAX_SEGS`` segments, no concatenation on the card.
+* ``rle_grouped_agg_plain`` / ``rle_grouped_agg_many_plain`` -- the same
+  functions in plain PyTorch.
 
 ``rle_filter_agg``: per block row, the count, sum and max of the rows of
 the runs whose value lies in [lo, hi] (and whose length is positive),
@@ -26,31 +30,39 @@ passing run reads ``[0, 0, -inf]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import build
 
 _POS, _NEG = 3.4e38, -3.4e38      # finite sentinels, as in the reference
+_MAX_SEGS = 64                    # RLE_MAX_SEGS in the source
 
-grouped_launches = 0    # kernel launches by ``rle_grouped_agg``
+grouped_launches = 0    # kernel launches by ``rle_grouped_agg(_many)``
 filter_launches = 0     # kernel launches by ``rle_filter_agg``
 
-# rle_grouped_agg_launch(keys, lengths, values, n_runs, domain, lo, hi,
-#                        count, sum, min, max, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+# rle_grouped_agg_launch(n_segs, keys[], lengths[], values[], n_runs[],
+#                        domain, lo, hi, init, out, stream)
+_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 # rle_filter_agg_launch(values, lengths, values_float, lengths_float,
 #                       n_blocks, n_runs, lo, hi, out, stream)
 _FILTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+_grouped_fn = None      # the entry point, looked up at the first launch
+_ARRAYS = threading.local()     # the entry point's pointer arrays
+
+Segment = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
-def _prepare(run_values, run_lengths, values):
+def _flat(run_values, run_lengths, values):
+    """One segment as int32 keys, int32 lengths and f32 values (None: the
+    key is the value), in their own shape: the kernel reads any
+    contiguous tensor as flat, the plain version reshapes."""
     if run_values.is_floating_point():
         raise TypeError("rle_grouped_agg: run values (group keys) must be "
                         "an integer tensor")
@@ -58,11 +70,22 @@ def _prepare(run_values, run_lengths, values):
             values is not None and values.shape != run_values.shape):
         raise ValueError("rle_grouped_agg: run values, lengths and values "
                          "must share one shape")
-    keys = run_values.reshape(-1).to(torch.int32)
-    lengths = run_lengths.reshape(-1).to(torch.int32)
-    vals = (run_values if values is None else values).reshape(-1) \
-        .to(torch.float32)
-    return keys, lengths, vals
+    keys = run_values if run_values.dtype == torch.int32 \
+        else run_values.to(torch.int32)
+    lengths = run_lengths if run_lengths.dtype == torch.int32 \
+        else run_lengths.to(torch.int32)
+    if values is not None and values.dtype != torch.float32:
+        values = values.to(torch.float32)
+    return keys, lengths, values
+
+
+def _segments(segments) -> list:
+    """Segments as (run_values, run_lengths, values or None)."""
+    segments = [(seg[0], seg[1], seg[2] if len(seg) > 2 else None)
+                for seg in segments]
+    if not segments:
+        raise ValueError("rle_grouped_agg: no run segments")
+    return segments
 
 
 def rle_grouped_agg_plain(run_values: torch.Tensor,
@@ -71,9 +94,11 @@ def rle_grouped_agg_plain(run_values: torch.Tensor,
                           domain: int, lo: float = -3.0e38,
                           hi: float = 3.0e38) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel, on any device."""
-    keys, lengths, vals = _prepare(run_values, run_lengths, values)
+    keys, lengths, vals = (None if t is None else t.reshape(-1)
+                           for t in _flat(run_values, run_lengths, values))
     dev = keys.device
     kf = keys.to(torch.float32)
+    vals = kf if vals is None else vals
     m = (kf >= lo) & (kf <= hi) & (lengths > 0) & (kf >= 0) & (kf < domain)
     k = keys.to(torch.int64).clamp(0, domain - 1)
     count = torch.zeros(domain, dtype=torch.int32, device=dev).index_add_(
@@ -87,28 +112,77 @@ def rle_grouped_agg_plain(run_values: torch.Tensor,
     return count, total, mn, mx
 
 
-def _launch(run_values, run_lengths, values, domain: int, lo: float,
-            hi: float):
-    global grouped_launches
-    keys, lengths, vals = (t.contiguous() for t in
-                           _prepare(run_values, run_lengths, values))
-    build.require_cuda("rle_grouped_agg", keys, lengths, vals,
-                       dtypes=(torch.int32, torch.int32, torch.float32))
-    dev = keys.device
-    count = torch.zeros(domain, dtype=torch.int32, device=dev)
-    total = torch.zeros(domain, dtype=torch.float32, device=dev)
-    mn = torch.full((domain,), _POS, dtype=torch.float32, device=dev)
-    mx = torch.full((domain,), _NEG, dtype=torch.float32, device=dev)
-    n = keys.shape[0]
-    if n:
-        fn = build.entry("rle_grouped_agg", "rle_grouped_agg_launch",
-                         _ARGTYPES)
-        build.check(fn(keys.data_ptr(), lengths.data_ptr(), vals.data_ptr(),
-                       n, domain, lo, hi, count.data_ptr(),
-                       total.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-                       build.stream_ptr(dev)), "rle_grouped_agg")
+def rle_grouped_agg_many_plain(segments: Sequence[Segment], *, domain: int,
+                               lo: float = -3.0e38, hi: float = 3.0e38
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the list form: ``rle_grouped_agg_plain`` over the
+    concatenation of the segments (a segment without values takes its
+    keys as values)."""
+    flat = [[None if t is None else t.reshape(-1) for t in _flat(*seg)]
+            for seg in _segments(segments)]
+    keys = torch.cat([k for k, _, _ in flat])
+    vals = torch.cat([k.to(torch.float32) if v is None else v
+                      for k, _, v in flat])
+    return rle_grouped_agg_plain(keys, torch.cat([n for _, n, _ in flat]),
+                                 vals, domain=domain, lo=lo, hi=hi)
+
+
+def _launch_many(segments: Sequence[Segment], domain: int, lo: float,
+                 hi: float):
+    global grouped_launches, _grouped_fn
+    flat = []
+    for seg in segments:
+        keys, lengths, vals = (None if t is None else t.contiguous()
+                               for t in _flat(*seg))
+        build.require_cuda("rle_grouped_agg", keys, lengths,
+                           *([] if vals is None else [vals]))
+        flat.append((keys, lengths, vals))
+    dev = flat[0][0].device
+    if any(k.device != dev for k, _, _ in flat):
+        raise ValueError("rle_grouped_agg: segments on different devices")
+    if _grouped_fn is None:
+        _grouped_fn = build.entry("rle_grouped_agg", "rle_grouped_agg_launch",
+                                  _ARGTYPES)
+    arrays = getattr(_ARRAYS, "segs", None)   # per thread: the call
+    if arrays is None:                        # releases the GIL
+        ptrs = ctypes.c_void_p * _MAX_SEGS
+        arrays = _ARRAYS.segs = (ptrs(), ptrs(), ptrs(),
+                                 (ctypes.c_longlong * _MAX_SEGS)())
+    keys_p, lengths_p, vals_p, n_runs = arrays
+    # one (4, domain) buffer of 4-byte words: count (int32), sum, min, max;
+    # the kernel writes every word
+    out = torch.empty((4, domain), dtype=torch.float32, device=dev)
+    stream = build.stream_ptr(dev)
+    for start in range(0, len(flat), _MAX_SEGS):
+        part = flat[start:start + _MAX_SEGS]
+        for i, (k, r, v) in enumerate(part):
+            keys_p[i], lengths_p[i] = k.data_ptr(), r.data_ptr()
+            vals_p[i] = None if v is None else v.data_ptr()
+            n_runs[i] = k.numel()
+        build.check(_grouped_fn(len(part), keys_p, lengths_p, vals_p, n_runs,
+                                domain, lo, hi, int(start == 0),
+                                out.data_ptr(), stream), "rle_grouped_agg")
         grouped_launches += 1
-    return count, total, mn, mx
+    count, total, mn, mx = out.unbind(0)
+    return count.view(torch.int32), total, mn, mx
+
+
+def rle_grouped_agg_many(segments: Sequence[Segment], *, domain: int,
+                         lo: float = -3.0e38, hi: float = 3.0e38
+                         ) -> Tuple[torch.Tensor, ...]:
+    """``[(run_values, run_lengths[, values]), ...]`` -> (count
+    int32, sum, min, max), each ``(domain,)``, over every segment's runs
+    as if concatenated.  CUDA tensors launch the kernel once per
+    ``_MAX_SEGS`` segments (or raise); CPU tensors take the plain
+    version."""
+    domain = int(domain)
+    if domain < 1:
+        raise ValueError(f"rle_grouped_agg: domain {domain} < 1")
+    segments = _segments(segments)
+    lo, hi = float(lo), float(hi)
+    if segments[0][0].is_cuda:
+        return _launch_many(segments, domain, lo, hi)
+    return rle_grouped_agg_many_plain(segments, domain=domain, lo=lo, hi=hi)
 
 
 def rle_grouped_agg(run_values: torch.Tensor, run_lengths: torch.Tensor,
@@ -124,7 +198,8 @@ def rle_grouped_agg(run_values: torch.Tensor, run_lengths: torch.Tensor,
     if domain < 1:
         raise ValueError(f"rle_grouped_agg: domain {domain} < 1")
     if run_values.is_cuda:
-        return _launch(run_values, run_lengths, values, domain, lo, hi)
+        return _launch_many([(run_values, run_lengths, values)], domain,
+                            float(lo), float(hi))
     return rle_grouped_agg_plain(run_values, run_lengths, values,
                                  domain=domain, lo=lo, hi=hi)
 

@@ -8,8 +8,10 @@ dtype's sentinels (int32 max/min, +-inf), ``avg`` is ``sum / max(count,
 1)``.  Oracle: ``src/repro/kernels/ref.py::seg_preagg_ref``.
 
 The reference's 1024-key cap is a TPU VMEM bound, not part of the
-contract: the CUDA kernel (csrc/seg_preagg.cu) scatters with global
-atomics and takes any domain up to the planner's dense limit.
+contract: the CUDA kernels (csrc/seg_preagg.cu) take any domain up to the
+planner's dense limit, by one of two routes (``seg_preagg_route``): a
+table privatised per CTA in shared memory where it fits, global atomics
+where it does not.
 
 * ``seg_preagg``       -- the wrapper: the CUDA kernel for CUDA tensors,
   the plain version for CPU tensors.
@@ -18,6 +20,8 @@ atomics and takes any domain up to the planner's dense limit.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -31,12 +35,46 @@ _MAX_AGGS = 32                            # SEG_MAX_AGGS in the source
 
 launches = 0    # kernel launches by ``seg_preagg`` (the main-path witness)
 
-# seg_preagg_launch(keys, valid, n, domain, counts, n_aggs, kinds,
-#                   is_float, vals, outs, stream)
+# seg_preagg_launch(keys, valid, n, domain, n_aggs, kinds, is_float, vals,
+#                   out, replicas, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
+_fn = None      # the entry point, looked up at the first launch
+# per thread: (kind codes, dtypes) -> the ctypes arrays of kind codes and
+# f32 flags, and one the value pointers are written into
+_SIGS = threading.local()
+_LANES = (torch.int32, torch.float32)
+
+# The shared route's budget: the dynamic shared memory one block may opt
+# in to on an H100 (227 KB), and the replicas of the table per CTA of 16
+# warps -- as many as keep the replicated table within 48 KB (four CTAs
+# an SM), at most one per pair of warps.
+SMEM_BYTES = 232_448
+REPLICA_BYTES = 48 * 1024
+MAX_REPLICAS = 8
+
+
+def seg_preagg_route(domain: int, n_aggs: int) -> str:
+    """"shared" when one (1 + n_aggs, domain) table of 4-byte words fits
+    the shared-memory budget of a CTA, else "global"."""
+    return "shared" if (1 + n_aggs) * domain * 4 <= SMEM_BYTES \
+        else "global"
+
+
+@functools.lru_cache(maxsize=1024)
+def seg_preagg_replicas(domain: int, n_aggs: int) -> int:
+    """Table replicas per CTA on the shared route (0 on the global one):
+    the largest power of two up to MAX_REPLICAS whose tables fit
+    REPLICA_BYTES, and at least one."""
+    if seg_preagg_route(domain, n_aggs) == "global":
+        return 0
+    table = (1 + n_aggs) * domain * 4
+    r = MAX_REPLICAS
+    while r > 1 and r * table > REPLICA_BYTES:
+        r //= 2
+    return r
 
 
 def _lane(v: torch.Tensor) -> torch.Tensor:
@@ -91,48 +129,67 @@ def seg_preagg_plain(keys: torch.Tensor, valid: torch.Tensor,
 
 
 def _launch(keys, valid, values, domain: int, aggs: Aggs):
-    global launches
+    global launches, _fn
     n = keys.shape[0]
-    dev = keys.device
-    keys = keys.to(torch.int32).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    build.require_cuda("seg_preagg", keys, valid,
-                       dtypes=(torch.int32, torch.bool))
-    counts = torch.zeros(domain, dtype=torch.int32, device=dev)
-    specs = []        # (name, kind code, value lane, output)
+    if keys.dtype != torch.int32:
+        keys = keys.to(torch.int32)
+    if valid.dtype != torch.bool:
+        valid = valid.to(torch.bool)
+    keys, valid = keys.contiguous(), valid.contiguous()
+    lanes = []        # (name, kind code, value lane)
     for name, col, kind in aggs:
         if kind == "count":
             continue
-        if kind not in _KINDS:
+        code = _KINDS.get(kind)
+        if code is None:
             raise ValueError(f"seg_preagg: unknown aggregate {kind!r}")
-        v = _lane(values[col]).contiguous()
-        build.require_cuda("seg_preagg", keys, v)
-        if v.shape != (n,):
+        v = values[col]
+        if v.dtype not in _LANES:
+            v = _lane(v)
+        v = v.contiguous()
+        if v.shape != keys.shape:
             raise ValueError(f"seg_preagg: {col} has shape "
                              f"{tuple(v.shape)}, keys ({n},)")
-        o = torch.zeros(domain, dtype=v.dtype, device=dev) \
-            if _KINDS[kind] == 0 else \
-            torch.full((domain,), _sentinel(v.dtype, kind == "min"),
-                       dtype=v.dtype, device=dev)
-        specs.append((name, _KINDS[kind], v, o))
-    if len(specs) > _MAX_AGGS:
-        raise ValueError(f"seg_preagg: {len(specs)} aggregates, the kernel "
+        lanes.append((name, code, v))
+    build.require_cuda("seg_preagg", keys, valid, *(v for _, _, v in lanes))
+    dev = keys.device
+    m = len(lanes)
+    if m > _MAX_AGGS:
+        raise ValueError(f"seg_preagg: {m} aggregates, the kernel "
                          f"takes at most {_MAX_AGGS}")
-    if n:
-        m = len(specs)
-        fn = build.entry("seg_preagg", "seg_preagg_launch", _ARGTYPES)
-        kinds = (ctypes.c_int * max(m, 1))(*[s[1] for s in specs])
-        is_float = (ctypes.c_int * max(m, 1))(
-            *[int(s[2].is_floating_point()) for s in specs])
-        vals = (ctypes.c_void_p * max(m, 1))(
-            *[s[2].data_ptr() for s in specs])
-        outs = (ctypes.c_void_p * max(m, 1))(
-            *[s[3].data_ptr() for s in specs])
-        build.check(fn(keys.data_ptr(), valid.data_ptr(), n, domain,
-                       counts.data_ptr(), m, kinds, is_float, vals, outs,
-                       build.stream_ptr(dev)), "seg_preagg")
-        launches += 1
-    return _finish(counts, {s[0]: s[3] for s in specs}, aggs)
+    # ctypes arrays per signature, per thread (the call releases the GIL)
+    sigs = getattr(_SIGS, "by_sig", None)
+    if sigs is None:
+        sigs = _SIGS.by_sig = {}
+    sig = tuple((code, v.dtype) for _, code, v in lanes)
+    arrays = sigs.get(sig)
+    if arrays is None:
+        size = max(m, 1)
+        arrays = sigs[sig] = (
+            (ctypes.c_int * size)(*[code for code, _ in sig]),
+            (ctypes.c_int * size)(*[int(dt == torch.float32)
+                                    for _, dt in sig]),
+            (ctypes.c_void_p * size)())
+    kinds, is_float, ptrs = arrays
+    for i, (_, _, v) in enumerate(lanes):
+        ptrs[i] = v.data_ptr()
+    if _fn is None:
+        _fn = build.entry("seg_preagg", "seg_preagg_launch", _ARGTYPES)
+    # one (1 + m, domain) buffer of 4-byte words, count first; the C call
+    # writes every word (identities, then the aggregates)
+    out = torch.empty((1 + m, domain), dtype=torch.int32, device=dev)
+    build.check(_fn(keys.data_ptr(), valid.data_ptr(), n, domain, m, kinds,
+                    is_float, ptrs, out.data_ptr(),
+                    seg_preagg_replicas(domain, m), build.stream_ptr(dev)),
+                "seg_preagg")
+    launches += 1
+    if not m:
+        return _finish(out.view(domain), {}, aggs)
+    rows = out.unbind(0)
+    accs = {name: rows[1 + i] if v.dtype == torch.int32
+            else rows[1 + i].view(torch.float32)
+            for i, (name, _, v) in enumerate(lanes)}
+    return _finish(rows[0], accs, aggs)
 
 
 def seg_preagg(keys: torch.Tensor, valid: torch.Tensor,

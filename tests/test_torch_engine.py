@@ -278,3 +278,107 @@ def test_port_only_entry_points_raise_until_ported():
         db.query("lineitem").group_by("l_suppkey") \
             .agg(n=("*", "count")).collect()
     assert db.epochs.n_pinned() == 0
+
+
+def _load_batches(core, sizes, **kw):
+    """Lineitem bulk-loaded in several direct-to-ROS commits: several
+    containers per node, none a whole number of 512-row blocks."""
+    db = core.VerticaDB(n_nodes=4, k_safety=0, block_rows=512, **kw)
+    schema = core.TableSchema("lineitem", (
+        core.ColumnDef("l_orderkey"), core.ColumnDef("l_suppkey"),
+        core.ColumnDef("l_shipdate"), core.ColumnDef("l_qty"),
+        core.ColumnDef("l_extprice", core.SQLType.FLOAT)))
+    db.catalog.add_table(schema)
+    db.create_projection(core.super_projection(
+        schema, ("l_shipdate", "l_suppkey"), ("l_orderkey",),
+        encodings={"l_shipdate": core.Encoding.RLE}))
+    for seed, n in enumerate(sizes):
+        t = db.begin(direct_to_ros=True)
+        db.insert(t, "lineitem", star_schema(n, N_DIM, seed=seed)[0])
+        db.commit(t)
+    return db
+
+
+def _q4(db, col):
+    qb = db.query("lineitem").group_by("l_shipdate").agg(c=("*", "count"))
+    return qb.collect(), qb.stats
+
+
+def _rle_run_ids(db):
+    return {key[0] for key in db.block_cache.keys() if key[2] == "rle_runs"}
+
+
+def _live_ids(db):
+    return {c.id for node in db.nodes
+            for c in node.stores["lineitem_super"].containers}
+
+
+@pytest.mark.parametrize("call_rows", [1 << 31, 3_000])
+def test_q4_batched_rle_route_against_reference(monkeypatch, call_rows):
+    """Q4 off the runs of every container in as few ``rle_grouped_agg``
+    calls as the row limit of a call allows (lowered here, so the route
+    makes several), the tail padding subtracted on the host, equal to the
+    reference exactly."""
+    from repro_torch.engine import operators, pipeline
+    sizes = (7_001, 5_003, 3_333)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref_db = _load_batches(ref_core, sizes)
+        want, ref_stats = _q4(ref_db, ref_engine.col)
+    port_db = _load_batches(port_core, sizes, device="cpu")
+    conts = [c for node in port_db.nodes
+             for c in node.stores["lineitem_super"].containers]
+    per_node = [len(node.stores["lineitem_super"].containers)
+                for node in port_db.nodes]
+    assert min(per_node) >= len(sizes)
+    assert any(c.n_rows % 512 for c in conts)          # tail padding
+    calls = []
+    inner = operators.groupby_rle_runs
+
+    def counted(runs, domain):
+        calls.append(len(runs))
+        return inner(runs, domain)
+    monkeypatch.setattr(operators, "groupby_rle_runs", counted)
+    monkeypatch.setattr(pipeline, "_RLE_CALL_ROWS", call_rows)
+    got, stats = _q4(port_db, port_engine.col)
+    assert stats.groupby_algorithm == ref_stats.groupby_algorithm == "rle"
+    n_containers = len(conts)
+    assert sum(calls) == n_containers
+    if call_rows == 1 << 31:
+        assert calls == [n_containers]
+    else:
+        assert len(calls) > 1
+    assert sorted(got) == sorted(want)
+    for c in want:
+        np.testing.assert_array_equal(np.asarray(got[c]).astype(np.int64),
+                                      np.asarray(want[c]).astype(np.int64))
+    assert int(np.sum(got["c"])) == sum(sizes)
+    assert port_db.epochs.n_pinned() == 0
+
+
+def test_rle_runs_cache_follows_the_tuple_mover():
+    """The runs cache holds exactly the live containers' ids: after a
+    mergeout the merged-away containers' runs are gone and Q4 still
+    matches the reference."""
+    sizes = (4_001, 3_001, 2_001)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref_db = _load_batches(ref_core, sizes)
+    port_db = _load_batches(port_core, sizes, device="cpu")
+    _q4(port_db, port_engine.col)
+    before = _live_ids(port_db)
+    assert _rle_run_ids(port_db) == before
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for db in (ref_db, port_db):
+            assert db.run_tuple_mover()["mergeouts"] > 0
+        want, _ = _q4(ref_db, ref_engine.col)
+    after = _live_ids(port_db)
+    assert after != before
+    assert _rle_run_ids(port_db) == before & after   # retired ones gone
+    got, stats = _q4(port_db, port_engine.col)
+    assert stats.groupby_algorithm == "rle"
+    assert _rle_run_ids(port_db) == after
+    for c in want:
+        np.testing.assert_array_equal(np.asarray(got[c]).astype(np.int64),
+                                      np.asarray(want[c]).astype(np.int64))

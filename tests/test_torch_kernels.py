@@ -188,3 +188,76 @@ def test_rle_grouped_agg_default_values_is_key():
     np.testing.assert_allclose(total.numpy(), want[1], rtol=1e-5)
     for k in range(8):
         assert int(count[k]) == rl[rv == k].sum()
+
+
+@pytest.mark.parametrize("with_values,bounded", [(False, False),
+                                                 (True, False),
+                                                 (True, True)])
+def test_rle_grouped_agg_many_matches_oracle(with_values, bounded):
+    """The list form over segments -- some empty, runs of length 0, keys
+    outside [lo, hi] and outside [0, domain) -- is the reference's oracle
+    over their concatenation."""
+    rng = np.random.default_rng(11 + 2 * with_values + bounded)
+    domain = 40
+    lo, hi = (3.0, float(domain) - 7) if bounded else (-3.0e38, 3.0e38)
+    segs, flat = [], []
+    for n in (50, 0, 300, 1, 0, 77):
+        rv = rng.integers(-5, domain + 5, n).astype(np.int32)
+        rl = rng.integers(0, 6, n).astype(np.int32)
+        val = rng.normal(size=n).astype(np.float32) if with_values \
+            else rv.astype(np.float32)
+        segs.append((_t(rv), _t(rl), _t(val) if with_values else None))
+        flat.append((rv, rl, val))
+    count, total, mn, mx = ops.rle_grouped_agg_many(segs, domain=domain,
+                                                    lo=lo, hi=hi)
+    assert count.dtype == torch.int32 and count.shape == (domain,)
+    rv, rl, val = (np.concatenate([f[i] for f in flat]) for i in range(3))
+    want = np.asarray(ref.rle_grouped_agg_ref(
+        jnp.asarray(rv), jnp.asarray(rl), jnp.asarray(val), domain, lo, hi))
+    np.testing.assert_array_equal(count.numpy(), want[0].astype(np.int64))
+    np.testing.assert_allclose(total.numpy(), want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(mn.numpy(), want[2])
+    np.testing.assert_array_equal(mx.numpy(), want[3])
+    # the single-segment wrapper over the concatenation agrees exactly
+    one = ops.rle_grouped_agg(_t(rv), _t(rl), _t(val), domain=domain,
+                              lo=lo, hi=hi)
+    for a, b in zip((count, total, mn, mx), one):
+        assert torch.equal(a, b)
+
+
+def test_rle_grouped_agg_many_rejects_bad_lists():
+    with pytest.raises(ValueError):
+        ops.rle_grouped_agg_many([], domain=4)
+    with pytest.raises(TypeError):
+        ops.rle_grouped_agg_many([(torch.zeros(3), torch.ones(3))],
+                                 domain=4)
+    with pytest.raises(ValueError):
+        ops.rle_grouped_agg_many([(torch.zeros(3, dtype=torch.int32),
+                                   torch.ones(2, dtype=torch.int32))],
+                                 domain=4)
+
+
+@pytest.mark.parametrize("n_aggs", [0, 1, 6, 32])
+def test_seg_preagg_route_at_the_shared_limit(n_aggs):
+    """"shared" while one (1 + n_aggs, domain) table of 4-byte words fits
+    the 227 KB a CTA may opt in to, "global" one key past it; the
+    replicas per CTA are a power of two up to 8 that keep the replicated
+    table within 48 KB, and at least one."""
+    from repro_torch.kernels.seg_preagg import (MAX_REPLICAS, REPLICA_BYTES,
+                                                SMEM_BYTES,
+                                                seg_preagg_replicas)
+    limit = SMEM_BYTES // (4 * (1 + n_aggs))
+    assert ops.seg_preagg_route(limit, n_aggs) == "shared"
+    assert ops.seg_preagg_route(limit + 1, n_aggs) == "global"
+    assert seg_preagg_replicas(limit, n_aggs) == 1
+    assert seg_preagg_replicas(limit + 1, n_aggs) == 0
+    for domain in (1, 100, 365, limit // 4, limit):
+        r = seg_preagg_replicas(domain, n_aggs)
+        table = (1 + n_aggs) * domain * 4
+        assert 1 <= r <= MAX_REPLICAS and r & (r - 1) == 0
+        assert r == 1 or r * table <= REPLICA_BYTES
+        assert r == MAX_REPLICAS or 2 * r * table > REPLICA_BYTES
+    # the main path's domains: 100 and 365 shared, 150,000 global
+    assert ops.seg_preagg_route(100, 1) == ops.seg_preagg_route(365, 2) \
+        == "shared"
+    assert ops.seg_preagg_route(150_000, 1) == "global"
