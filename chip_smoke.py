@@ -12,7 +12,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
    seconds it took;
 3. after the host load of the data below, every column of a lineitem
    and an orders container decoded on the card bit for bit against the
-   host decode (FLOAT_SCALED's division included), and bitunpack and
+   host decode (FLOAT_SCALED's division included); ``bitunpack_segments``
+   bit for bit against its plain version on its edge cases (widths 1, 6,
+   21, 31, 32, empty kept lists, 70 segments, word rows and outputs off
+   16-byte alignment, block_rows 64 and 98, a base of INT32_MAX;
+   ``segment_checks``); bitunpack and
    rle_grouped_agg against their plain PyTorch versions on the card, on
    the payloads of a real lineitem container: bitunpack bit-exact for
    every width 1..32 with and without base; rle_grouped_agg counts
@@ -57,10 +61,28 @@ Phases, one line each (any failure raises and the script exits non-zero):
    (ints and counts exact, f32 sums within rtol 1e-5), and one float
    ``delta_decode`` case at (123, 4096) within rtol 1e-5 of the running
    magnitude;
-6. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
+6. compressed-domain execution (``compressed_phase``): on the main
+   database at ``benchmarks/cstore_queries.py``'s constrained budget
+   (max(0.55 (packed + decoded), 2 packed + 1 MiB) over l_shipdate,
+   l_suppkey, l_qty, l_extprice), Q2, Q3, Q6 and Q7 in "auto" (each
+   must take the compressed scan) and Qorders in "auto" (must stay
+   decoded) then forced "compressed"; then a second SF1 lineitem from
+   the same arrays with BLOCK_DICT l_qty, where Qdict_filter (l_qty < 24
+   and 60 < l_shipdate < 120, by l_suppkey, sum l_extprice) and
+   Qdict_group (10 <= l_qty <= 20, by l_qty, count) run forced
+   "compressed".  Each query runs cold and warm in its mode on a fresh
+   cache of that budget with the packed payloads protected, then cold
+   and warm in "decoded" on another: both against the oracle and each
+   other (ints exact, floats rtol 1e-4), no decoded block of the scanned
+   table cached, and warm ``bitunpack`` launches equal to its packed
+   predicate columns (``[compressed]`` lines; ``[launches]
+   path=compressed`` counts the compressed runs, each zeroed just before
+   and read just after), then ``bitunpack_segments`` over the l_qty codes
+   of all 12 containers in one launch, timed;
+7. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
    general path, then again after ``run_tuple_mover(force_moveout=True)``,
    all against the oracle;
-7. the LM serving path (the database is freed first): the bf16 flash
+8. the LM serving path (the database is freed first): the bf16 flash
    kernels' machine code must hold warpgroup MMAs (``[sass]`` lines:
    HGMMA counted by ``cuobjdump``); then qwen3-4b at its
    published width (36 layers, 4.02e9 parameters) built on the card in
@@ -84,7 +106,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
    of a prefill and of a decode step (device kernels only).
 
 The last lines: the card's name and power limit, one JSON object with a
-row per kernel and, for seg_preagg, per main-path shape (``ms``,
+row per kernel and, for seg_preagg, per main-path shape, and for
+bitunpack its one-container shape and the whole scan (``ms``,
 ``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
 ``kernel_device_ms``: the kernels of one call in a torch.profiler trace
 (for seg_preagg and rle_grouped_agg the output-initialising kernel
@@ -93,8 +116,9 @@ included, and ``fold_device_ms`` without it);
 H100's 3.35 TB/s, for ``flash_attention`` the larger of that and its
 flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
 ``bound_share``, the bound over ``kernel_device_ms``; ``launches``:
-the run of the kernel's path -- the main path, phase 5 for the four
-kernels only ``ops`` reaches, or phase 7's prefill shape), and
+the run of the kernel's path -- the main path, phase 6 for the
+whole-scan bitunpack row, phase 5 for the four kernels only ``ops``
+reaches, or phase 8's prefill shape), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
@@ -198,8 +222,11 @@ def _fmt(ms) -> str:
 
 # ------------------------------------------------------------------ data --
 
-def build_db(fact, dim, device, block_rows=4096, cache_budget=4 << 30):
-    """The cstore_queries layout, built with the port."""
+def build_db(fact, dim, device, block_rows=4096, cache_budget=4 << 30,
+             encodings=None):
+    """The cstore_queries layout, built with the port; ``encodings`` adds
+    lineitem column encodings to the RLE l_shipdate, and ``dim=None``
+    leaves orders out."""
     from repro_torch.core import (ColumnDef, Encoding, SQLType, TableSchema,
                                   VerticaDB, super_projection)
     db = VerticaDB(n_nodes=4, k_safety=0, block_rows=block_rows,
@@ -211,14 +238,16 @@ def build_db(fact, dim, device, block_rows=4096, cache_budget=4 << 30):
     db.catalog.add_table(schema)
     db.create_projection(super_projection(
         schema, ("l_shipdate", "l_suppkey"), ("l_orderkey",),
-        encodings={"l_shipdate": Encoding.RLE}))
-    db.create_table(TableSchema("orders", (
-        ColumnDef("o_orderkey"), ColumnDef("o_custkey"),
-        ColumnDef("o_orderdate"))), sort_order=("o_orderkey",),
-        segment_by=())
+        encodings={"l_shipdate": Encoding.RLE, **(encodings or {})}))
+    if dim is not None:
+        db.create_table(TableSchema("orders", (
+            ColumnDef("o_orderkey"), ColumnDef("o_custkey"),
+            ColumnDef("o_orderdate"))), sort_order=("o_orderkey",),
+            segment_by=())
     t = db.begin(direct_to_ros=True)
     db.insert(t, "lineitem", fact)
-    db.insert(t, "orders", dim)
+    if dim is not None:
+        db.insert(t, "orders", dim)
     db.commit(t)
     return db
 
@@ -262,6 +291,16 @@ def oracle(name, fact, dim):
         return keys, {"n": np.bincount(inv),
                       "s": np.bincount(inv, d["o_custkey"][m]
                                        .astype(np.float64))}
+    qty = f["l_qty"]
+    if name == "Qdict_filter":
+        m = (qty < 24) & (sd > 60) & (sd < 120)
+        keys, inv = np.unique(f["l_suppkey"][m], return_inverse=True)
+        return keys, {"s": np.bincount(inv, f["l_extprice"][m]
+                                       .astype(np.float64))}
+    if name == "Qdict_group":
+        keys, inv = np.unique(qty[(qty >= 10) & (qty <= 20)],
+                              return_inverse=True)
+        return keys, {"c": np.bincount(inv)}
     cust = d["o_custkey"][f["l_orderkey"]]        # o_orderkey == position
     if name == "Q2":
         m, key, agg = sd == 180, f["l_suppkey"], ("c", None, "count")
@@ -286,11 +325,15 @@ def oracle(name, fact, dim):
     return keys, {out: s / cnt if kind == "avg" else s}
 
 
+KEY_COL = {"Q1": None, "Q2": "l_suppkey", "Q3": "l_suppkey",
+           "Q4": "l_shipdate", "Q5": "o_custkey", "Q6": "l_suppkey",
+           "Q7": "o_custkey", "Qorders": "o_orderdate",
+           "Qdict_filter": "l_suppkey", "Qdict_group": "l_qty"}
+
+
 def check(name, res, fact, dim) -> None:
     keys, want = oracle(name, fact, dim)
-    key_col = {"Q1": None, "Q2": "l_suppkey", "Q3": "l_suppkey",
-               "Q4": "l_shipdate", "Q5": "o_custkey", "Q6": "l_suppkey",
-               "Q7": "o_custkey", "Qorders": "o_orderdate"}[name]
+    key_col = KEY_COL[name]
     got_keys = np.zeros(1, np.int64) if key_col is None \
         else np.asarray(res[key_col]).astype(np.int64)
     order = np.argsort(got_keys, kind="stable")
@@ -331,6 +374,76 @@ def decode_checks(db, device) -> None:
             seen[name] = col.encoding.value
     _say("decode", bit_exact=True,
          columns=json.dumps(seen, separators=(",", ":")))
+
+
+def segment_checks(device) -> None:
+    """``bitunpack_segments`` (the compressed scan's one launch per
+    predicate column) bit for bit against its plain version on the card:
+    widths 1, 6, 21, 31 and 32 with and without a base of INT32_MAX (it
+    wraps), segments with no kept block, 70 segments in one launch, word
+    rows at an offset and a row stride that are not 16-byte aligned,
+    block_rows 64 and 98 (output rows at an 8-byte offset, a ragged last
+    quad), then the one-segment ``bitunpack`` on the unaligned rows."""
+    import torch
+    from repro_torch.core.encodings import to_device
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(17)
+    i32_max = np.int32(2**31 - 1)
+
+    def stream(nb, br, width, offset=0):
+        ng = -(-br // 32)
+        bits = rng.integers(0, 1 << 32, (nb, ng * width + offset),
+                            dtype=np.uint64).astype(np.uint32)
+        return to_device(bits, device)[:, offset:]
+
+    def base(nb, kind):
+        if kind is None:
+            return None
+        b = np.full(nb, i32_max) if kind == "max" else             rng.integers(-2**31, 2**31, nb, dtype=np.int64).astype(np.int32)
+        return torch.as_tensor(b, device=device)
+
+    def kept(nb, kind):
+        return {"all": None, "none": np.zeros(0, np.int64),
+                "some": np.sort(rng.choice(nb, max(1, nb // 3),
+                                           replace=False)),
+                "shuffled": rng.permutation(nb)}[kind]
+
+    cases = []                                   # (what, block_rows, segs)
+    for br in (4096, 64, 98):
+        cases.append((f"widths br={br}", br, [
+            ops.Segment(stream(7, br, w), w, base(7, b), kept(7, k))
+            for w, b, k in ((1, None, "all"), (6, "max", "some"),
+                            (21, "rand", "none"), (31, "max", "shuffled"),
+                            (32, None, "some"), (32, "max", "all"))]))
+        cases.append((f"unaligned rows br={br}", br, [
+            ops.Segment(stream(5, br, w, offset=1), w, base(5, "max"),
+                        kept(5, "shuffled")) for w in (1, 6, 21, 31, 32)]))
+    cases.append(("70 segments", 64, [
+        ops.Segment(stream(3, 64, int(w)), int(w), base(3, b), kept(3, k))
+        for w, b, k in zip(rng.integers(1, 33, 70),
+                           ["max", None, "rand"] * 24,
+                           ["all", "none", "some", "shuffled"] * 18)]))
+    cases.append(("only empty", 64, [
+        ops.Segment(stream(3, 64, 6), 6, None, kept(3, "none"))] * 3))
+    n_launch = ops.launch_counts()["bitunpack"]
+    for what, br, segs in cases:
+        got = ops.bitunpack_segments(segs, br)
+        want = ops.bitunpack_segments_plain(segs, br)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"bitunpack_segments {what}: not "
+                                 f"bit-exact against its plain version")
+        if what.startswith("unaligned"):
+            for sg in segs:
+                one = ops.bitunpack(sg.words, sg.width, br, base=sg.base)
+                if not torch.equal(one, ops.bitunpack_plain(
+                        sg.words, sg.width, br, sg.base)):
+                    raise AssertionError(f"bitunpack {what} "
+                                         f"w={sg.width}: not bit-exact")
+    launched = ops.launch_counts()["bitunpack"] - n_launch
+    _say("kernel", name="bitunpack_segments", bit_exact=True,
+         cases=len(cases), widths="1,6,21,31,32,random",
+         block_rows="4096,64,98", segments_max=70, launches=launched)
 
 
 def kernel_checks(db, device):
@@ -1191,6 +1304,7 @@ def run_main_path(db, fact, dim, device, capture=None) -> dict:
         _say("query", name=name, cold_ms=f"{ms[0]:.3f}",
              warm_ms=f"{ms[1]:.3f}", route=st.groupby_algorithm,
              fused=st.fused, plan_cache=st.plan_cache,
+             frontend_ms=f"{st.frontend_s * 1e3:.3f}",
              rows_scanned=st.rows_scanned, oracle="match",
              launches_cold=launched[0], launches_warm=launched[1])
         warm[name] = ms[1]
@@ -1215,7 +1329,7 @@ def profile_queries(db, warm) -> None:
 
 
 def run_trickle(db, fact, dim, device) -> None:
-    """Phase 5: pending WOS rows force the general path, then the tuple
+    """Phase 7: pending WOS rows force the general path, then the tuple
     mover drains them and the fused path returns."""
     from repro_torch.data import star_schema
     more, _ = star_schema(N_TRICKLE, N_DIM, seed=1)
@@ -1236,6 +1350,247 @@ def run_trickle(db, fact, dim, device) -> None:
                                      f"{st.fused}")
             _say("trickle", stage=stage, name=name, fused=st.fused,
                  route=st.groupby_algorithm, oracle="match")
+
+
+# ------------------------------------------------------- compressed path --
+
+# benchmarks/cstore_queries.py's compression tier: the working set its
+# budget is computed over, and its fused queries (COMP_NAMES less Q1,
+# which runs on the host), plus Q7
+COMP_NEED = ("l_shipdate", "l_suppkey", "l_qty", "l_extprice")
+COMP_AUTO = ("Q2", "Q3", "Q6", "Q7")
+PRED_COLS = {"Q2": ("l_shipdate",), "Q3": ("l_shipdate",),
+             "Q6": ("l_shipdate",), "Q7": ("l_suppkey",),
+             "Qorders": ("o_orderkey",),
+             "Qdict_filter": ("l_qty", "l_shipdate"),
+             "Qdict_group": ("l_qty",)}
+
+
+def comp_budget(db):
+    """cstore_queries.py's constrained budget, max(0.55 (packed +
+    decoded), 2 packed + 1 MiB) over COMP_NEED of every lineitem
+    container: it holds the packed working set, not the decoded one.
+    Returns (packed, decoded, budget) bytes, by the port's device_bytes."""
+    from repro_torch.core.encodings import device_bytes, upload_torch
+    packed = decoded = 0
+    for c in _containers(db, "lineitem_super"):
+        for name in COMP_NEED:
+            ec = c.columns[name]
+            inner = ec.inner if ec.inner is not None else ec
+            packed += device_bytes(upload_torch(inner, "cpu"))
+            decoded += inner.n_blocks * inner.block_rows * 4
+    return packed, decoded, max(int(0.55 * (packed + decoded)),
+                                2 * packed + (1 << 20))
+
+
+def _packed_preds(db, table, cols) -> int:
+    """Predicate columns stored packed in some container (BLOCK_DICT
+    codes, DELTA_VALUE or DELTA_RANGE deltas): the bitunpack launches a
+    compressed query must make, one per column."""
+    return sum(any(col.encoding.value in ("block_dict", "delta_value",
+                                          "delta_range")
+                   and any(k.endswith("_packed") for k in col.arrays)
+                   for col in (c.columns[n]
+                               for c in _containers(db, table)))
+               for n in cols)
+
+
+def _comp_runs(db, qb, mode, budget, protect, device):
+    """``qb`` cold then warm in ``mode`` on a fresh BlockCache of
+    ``budget`` bytes (cstore_queries.py's _bench_compression), the launch
+    counters zeroed just before each run and read just after.  Returns
+    [(ms, launches, result, stats)] and leaves the cache in place."""
+    from repro_torch.core.block_cache import BlockCache
+    from repro_torch.kernels import ops
+    db.block_cache = BlockCache(budget, protect_packed=protect)
+    db.exec_mode = mode
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        res = qb.collect()
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append((ms, ops.launch_counts(), res, qb.stats))
+    return runs
+
+
+def _same_result(name, a, b) -> None:
+    """Two runs of one query: the same groups, ints and counts equal,
+    floats within rtol 1e-4 (f32 atomics reorder sums between runs)."""
+    key = KEY_COL[name]
+    if set(a) != set(b):
+        raise AssertionError(f"{name}: columns {sorted(a)} != {sorted(b)}")
+    ka = np.asarray(a[key]).astype(np.int64)
+    kb = np.asarray(b[key]).astype(np.int64)
+    oa, ob = np.argsort(ka, kind="stable"), np.argsort(kb, kind="stable")
+    if not np.array_equal(ka[oa], kb[ob]):
+        raise AssertionError(f"{name}: compressed and decoded groups differ")
+    for c in a:
+        x, y = np.asarray(a[c])[oa], np.asarray(b[c])[ob]
+        same = np.array_equal(x, y) if x.dtype.kind in "iub" else \
+            np.allclose(x, y, rtol=1e-4, atol=0)
+        if not same:
+            raise AssertionError(f"{name}.{c}: compressed != decoded")
+
+
+def _comp_query(db, name, qb, mode, budget, fact, dim, table, device,
+                totals) -> None:
+    """One query of the compressed phase: cold and warm in ``mode`` with
+    the packed payloads protected, one more warm run under the profiler,
+    then cold and warm in "decoded" at the same budget; both held against
+    the oracle and each other, the compressed runs' launches added to
+    ``totals``.  Fails unless every compressed run took the code-domain
+    scan, cached no decoded block of the table and, warm, launched
+    bitunpack once per packed predicate column."""
+    from repro_torch.core.block_cache import KIND_DECODED
+    comp = _comp_runs(db, qb, mode, budget, True, device)
+    ids = {c.id for c in _containers(db, table)}
+    n_dec = sum(1 for k in db.block_cache.keys()
+                if k[2] == KIND_DECODED and k[0] in ids)
+    in_use = db.block_cache.stats.bytes_in_use
+    dev_ms, by_name = _profile(qb.collect, kernels_only=True)
+    dec = _comp_runs(db, qb, "decoded", budget, False, device)
+    for _, _, res, _ in comp + dec:
+        check(name, res, fact, dim)
+    for (_, _, res, _), (_, _, dres, _) in zip(comp, dec):
+        _same_result(name, res, dres)
+    expect = _packed_preds(db, table, PRED_COLS[name])
+    st = comp[1][3]
+    if not all(r[3].compressed_scan for r in comp) or any(
+            r[3].compressed_scan for r in dec):
+        raise AssertionError(f"{name}: {mode} did not take the compressed "
+                             f"scan, or decoded did")
+    if comp[1][1]["bitunpack"] != expect:
+        raise AssertionError(f"{name}: warm bitunpack launches "
+                             f"{comp[1][1]['bitunpack']}, expected {expect}")
+    if n_dec:
+        raise AssertionError(f"{name}: {n_dec} decoded blocks cached")
+    for _, launched, _, _ in comp:
+        for k in totals:
+            totals[k] += launched[k]
+    top = max(by_name, key=by_name.get) if by_name else None
+    _say("compressed", name=name, mode=mode,
+         cold_ms=f"{comp[0][0]:.3f}", warm_ms=f"{comp[1][0]:.3f}",
+         decoded_cold_ms=f"{dec[0][0]:.3f}",
+         decoded_warm_ms=f"{dec[1][0]:.3f}",
+         compressed_scan=st.compressed_scan, rows_scanned=st.rows_scanned,
+         rows_materialized=st.rows_materialized,
+         bitunpack="/".join(str(r[1]["bitunpack"]) for r in comp),
+         seg_preagg="/".join(str(r[1]["seg_preagg"]) for r in comp),
+         packed_pred_cols=expect, cache_bytes=in_use,
+         decoded_entries=n_dec, oracle="match", equals_decoded=True,
+         device_ms=_fmt(dev_ms),
+         busy_share=_fmt(dev_ms and dev_ms / comp[1][0]),
+         top_kernel=(top or "none").replace(" ", "_")[:60])
+
+
+def whole_scan_row(db, launches, device) -> dict:
+    """``bitunpack_segments`` over the l_qty codes of every container in
+    one launch, the shape Qdict_group's mask program gives it: bit for
+    bit against its plain version and the host unpack, timed."""
+    import torch
+    from repro_torch.core.encodings import unpack_words, upload_torch
+    from repro_torch.kernels import ops
+    segs, host = [], []
+    for c in _containers(db, "lineitem_super"):
+        col = c.columns["l_qty"]
+        w = col.widths["codes_packed"]
+        segs.append(ops.Segment(upload_torch(col, device)["codes_packed"],
+                                w, None, np.arange(col.n_blocks)))
+        host.append(unpack_words(col.arrays["codes_packed"], w,
+                                 col.block_rows))
+    br = host[0].shape[1]
+    got = ops.bitunpack_segments(segs, br)
+    want = ops.bitunpack_segments_plain(segs, br)
+    if not (got.shape == want.shape and torch.equal(got, want)
+            and np.array_equal(
+            got.cpu().numpy(), np.concatenate(host).astype(np.int32))):
+        raise AssertionError("bitunpack_segments whole scan: not bit-exact")
+    n_blk = got.shape[0]
+    nbytes = sum(s.words.numel() * 4 for s in segs) + got.numel() * 4 \
+        + n_blk * 8 + len(segs) * 64          # words, codes, kept, table
+    widths = sorted({s.width for s in segs})
+    fn = lambda: ops.bitunpack_segments(segs, br)      # noqa: E731
+    row = {"name": "bitunpack", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/bitunpack.cu",
+           "replaces": "src/repro/kernels/bitunpack.py:111",
+           "launches": launches, "launches_path": "compressed",
+           "max_abs_err": float((got.long() - want.long()).abs().max()),
+           "ms": _time_ms(fn),
+           "plain_ms": _time_ms(lambda: ops.bitunpack_segments_plain(
+               segs, br), reps=5),
+           "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+           "library_ms": None,
+           "kernel_device_ms": _kernel_device_ms(fn, "bitunpack_kernel"),
+           "shape": f"whole scan: l_qty codes of {len(segs)} containers, "
+                    f"{n_blk} blocks x {br}, w={widths}, one launch"}
+    _say_row(row, shape=row["shape"].replace(" ", "_"), bit_exact=True)
+    return row
+
+
+def compressed_phase(db, fact, dim, device):
+    """Phase 6: compressed-domain execution on the card.  (a) The
+    reference benchmark's constrained deployment on the main database:
+    Q2, Q3, Q6 and Q7 in "auto" at cstore_queries.py's budget (each takes
+    the compressed scan), Qorders in "auto" (stays decoded: its decoded
+    working set fits) and then forced "compressed".  (b) A second SF1
+    lineitem from the same arrays with BLOCK_DICT l_qty: a code-range
+    filter mixed with the sort column, and a GROUP BY in the code space,
+    forced "compressed".  Returns the whole-scan bitunpack JSON row."""
+    from repro_torch.core import Encoding
+    from repro_torch.engine import col
+    saved = db.block_cache
+    totals = {"bitunpack": 0, "seg_preagg": 0}
+    try:
+        packed, decoded, budget = comp_budget(db)
+        _say("compressed", layout="cstore_queries", packed_mb=packed / 1e6,
+             decoded_mb=decoded / 1e6, budget_mb=budget / 1e6)
+        queries = make_queries(db)
+        auto = _comp_runs(db, queries["Qorders"], "auto", budget, True,
+                          device)
+        if any(r[3].compressed_scan for r in auto):
+            raise AssertionError("Qorders: auto left the decoded scan")
+        _say("compressed", name="Qorders", mode="auto",
+             compressed_scan=False, cold_ms=f"{auto[0][0]:.3f}",
+             warm_ms=f"{auto[1][0]:.3f}")
+        for name in COMP_AUTO + ("Qorders",):
+            _comp_query(db, name, queries[name],
+                        "compressed" if name == "Qorders" else "auto",
+                        budget, fact, dim, "lineitem_super"
+                        if name != "Qorders" else "orders_super",
+                        device, totals)
+    finally:
+        db.block_cache, db.exec_mode = saved, "auto"
+
+    t0 = time.perf_counter()
+    db2 = build_db(fact, None, device,
+                   encodings={"l_qty": Encoding.BLOCK_DICT})
+    packed, decoded, budget = comp_budget(db2)
+    _say("compressed", layout="dict_qty",
+         seconds=f"{time.perf_counter() - t0:.1f}",
+         l_qty=db2.nodes[0].stores["lineitem_super"].containers[0]
+         .columns["l_qty"].encoding.value,
+         packed_mb=packed / 1e6, decoded_mb=decoded / 1e6,
+         budget_mb=budget / 1e6)
+    li = db2.query("lineitem")
+    dict_queries = {
+        "Qdict_filter": li.where((col("l_qty") < 24)
+                                 & (col("l_shipdate") > 60)
+                                 & (col("l_shipdate") < 120))
+                          .group_by("l_suppkey")
+                          .agg(s=("l_extprice", "sum")),
+        "Qdict_group": li.where((col("l_qty") >= 10) & (col("l_qty") <= 20))
+                         .group_by("l_qty").agg(c=("*", "count")),
+    }
+    for name, qb in dict_queries.items():
+        _comp_query(db2, name, qb, "compressed", budget, fact, None,
+                    "lineitem_super", device, totals)
+    _say("launches", path="compressed", **totals)
+    if not all(totals.values()):
+        raise AssertionError(f"compressed path never launched: {totals}")
+    return [whole_scan_row(db2, totals["bitunpack"], device)]
 
 
 # -------------------------------------------------------------- LM path --
@@ -1363,7 +1718,7 @@ def flash_sass() -> None:
 
 
 def lm_phase(device):
-    """Phase 7: qwen3-4b at full width on the card.  Returns the
+    """Phase 8: qwen3-4b at full width on the card.  Returns the
     flash_attention JSON rows."""
     import torch
     from repro_torch import configs
@@ -1602,6 +1957,7 @@ def main() -> int:
          orders_encodings=json.dumps(oenc, separators=(",", ":")))
 
     decode_checks(db, device)
+    segment_checks(device)
     rows = kernel_checks(db, device)
     seg_preagg_case_checks(device)
     rle_case_checks(device)
@@ -1637,6 +1993,7 @@ def main() -> int:
                  index_add_ms=f"{seg['library_ms']:.4f}")
     rows += api_rows
 
+    rows += compressed_phase(db, fact, dim, device)
     run_trickle(db, fact, dim, device)
     torch.cuda.synchronize()
     del db, capture                      # the LM phase needs the memory

@@ -1,7 +1,7 @@
 """Vertica core on torch: projections, encodings, storage, MVCC, K-safety.
 
 Mirrors ``src/repro/core/__init__.py``, less what is not ported yet
-(``recovery``, the segmented and compressed device helpers); adds
+(``recovery``, the segmented device helpers); adds
 ``carry`` (state_of / database_from_state).
 """
 from .block_cache import BlockCache, CacheStats

@@ -175,9 +175,11 @@ class VerticaDB:
         # device-resident block cache, shared by every store of this DB
         # (our HBM analog of Vertica leaning on the OS page cache)
         self.block_cache = BlockCache(cache_budget_bytes)
-        # compressed-domain execution policy: "auto" and "decoded" both
-        # take the decoded scan; "compressed" raises until the
-        # compressed-execution slice is ported (ROADMAP.md queue 1 item 6)
+        # compressed-domain execution policy (engine/compressed.py):
+        #   "auto"       -- code-domain scan only when the decoded working
+        #                   set is not already device-resident
+        #   "compressed" -- always, when the plan is eligible
+        #   "decoded"    -- never (the legacy decode-then-filter scan)
         self.exec_mode = "auto"
         # fault injection (core/faults.py): a no-op NullInjector unless a
         # test/chaos harness opts in via enable_faults(seed=...)

@@ -58,9 +58,8 @@ DBD's empirical "try it on sample data" approach.
 Mirrors ``src/repro/core/encodings.py``: the numpy half (encoders,
 ``pack_words``/``unpack_words``, ``EncodedColumn``, ``encode``) is a verbatim
 copy, so encoded payloads are byte-identical to the reference's; the
-device half (``upload_torch``, ``decode_torch``) mirrors lines 558-644 of
-the reference.  Random-access and gather decodes belong to the
-compressed-execution slice and are not ported yet.
+device half (``upload_torch``, ``decode_torch``, ``random_access_torch``,
+``gather_decode_torch``) mirrors lines 558-697 of the reference.
 """
 from __future__ import annotations
 
@@ -601,12 +600,18 @@ def device_bytes(arrays) -> int:
     return int(arrays.numel()) * arrays.element_size()
 
 
+def _stream_width(col: EncodedColumn, key: str) -> int:
+    """Bits per symbol of the packed stream ``key``."""
+    return col.widths.get(key) or _packed_width(col.arrays, key,
+                                                col.block_rows)
+
+
 def _unpack_torch(a, col: EncodedColumn, key: str, base=None):
     """Device bit-unpack of a packed stream via the kernel dispatcher."""
     from ..kernels import ops as kops
 
-    w = col.widths.get(key) or _packed_width(col.arrays, key, col.block_rows)
-    return kops.bitunpack(a[key], w, col.block_rows, base=base)
+    return kops.bitunpack(a[key], _stream_width(col, key), col.block_rows,
+                          base=base)
 
 
 def _to_lane(t):
@@ -626,12 +631,11 @@ def decode_torch(col: EncodedColumn, device, arrays=None):
     import torch
 
     if col.encoding == Encoding.FLOAT_SCALED:
-        x = decode_torch(col.inner, device, arrays).to(torch.float32)
         # a 0-d device tensor, not a Python scalar: CUDA divides by a host
         # scalar as a multiply by its reciprocal, which is 1 ULP off the
         # host decode (the same trap the reference documents for XLA)
-        return x / torch.tensor(col.scale, dtype=torch.float32,
-                                device=x.device)
+        return _scale_div(decode_torch(col.inner, device, arrays),
+                          col.scale)
     a = arrays if arrays is not None else upload_torch(col, device)
     br = col.block_rows
     enc = col.encoding
@@ -679,6 +683,66 @@ def decode_torch(col: EncodedColumn, device, arrays=None):
         return first + torch.cumsum(deltas, dim=1, dtype=torch.int32) \
             - deltas[:, :1]
     raise ValueError(f"cannot decode {enc}")
+
+
+# ---------------------------------------------------------------------------
+# Compressed-domain access helpers (executor late materialization).
+# ---------------------------------------------------------------------------
+
+def random_access_torch(col: EncodedColumn) -> bool:
+    """True when single rows can be decoded on device without reconstructing
+    whole blocks (no cumsum / run expansion)."""
+    if col.encoding == Encoding.FLOAT_SCALED:
+        return random_access_torch(col.inner)
+    return col.encoding in (Encoding.PLAIN, Encoding.DELTA_VALUE,
+                            Encoding.BLOCK_DICT)
+
+
+def _scale_div(x, scale: float):
+    """FLOAT_SCALED's division, as ``decode_torch`` does it: by a 0-d
+    float32 tensor on ``x``'s device (CUDA turns a Python-scalar divisor
+    into a multiply by its reciprocal, 1 ULP off the host decode)."""
+    import torch
+
+    return x.to(torch.float32) / torch.tensor(scale, dtype=torch.float32,
+                                              device=x.device)
+
+
+def gather_decode_torch(col: EncodedColumn, a, b_idx, r_idx):
+    """Decode only the rows (block b_idx[i], row r_idx[i]) on device, in
+    the 32-bit lanes of ``decode_torch``.
+
+    The late-materialization path: survivor positions from a code-domain
+    predicate gather straight out of the packed payload ``a`` (from
+    ``upload_torch``), so non-predicate columns never materialize full
+    blocks.  Only valid for encodings where ``random_access_torch`` is
+    True."""
+    import torch
+
+    from ..kernels.bitunpack import gather_unpack
+
+    enc = col.encoding
+    if enc == Encoding.FLOAT_SCALED:
+        return _scale_div(gather_decode_torch(col.inner, a, b_idx, r_idx),
+                          col.scale)
+    b, r = b_idx.long(), r_idx.long()
+    if enc == Encoding.PLAIN:
+        return _to_lane(a["values"][b, r])
+    if enc == Encoding.DELTA_VALUE:
+        if "deltas_packed" in col.arrays:
+            d = gather_unpack(a["deltas_packed"],
+                              _stream_width(col, "deltas_packed"), b, r)
+        else:
+            d = a["deltas"][b, r].to(torch.int32)
+        return _to_lane(a["base"])[b] + d
+    if enc == Encoding.BLOCK_DICT:
+        if "codes_packed" in col.arrays:
+            codes = gather_unpack(a["codes_packed"],
+                                  _stream_width(col, "codes_packed"), b, r)
+        else:
+            codes = a["codes"][b, r]
+        return _to_lane(a["dict_values"][b, codes.long()])
+    raise ValueError(f"{enc} is not randomly accessible on device")
 
 
 def choose_encoding_stats(values: np.ndarray) -> Dict[str, float]:

@@ -19,9 +19,10 @@ Mirrors ``src/repro/engine/executor.py`` for single-node execution:
      jitted program; the results come back in one batched device->host
      copy.
 
-Every tensor lives on ``db.device``.  Compressed-domain execution
-(``db.exec_mode = "compressed"``), the deferred/shared serving variants
-and the segmented snapshot helpers are not ported yet.
+Every tensor lives on ``db.device``.  An eligible scan may run in the
+code domain instead (engine/compressed.py, picked by ``db.exec_mode``).
+The deferred/shared serving variants and the segmented snapshot helpers
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..core.encodings import decode_torch, device_bytes, to_device, \
     upload_torch
 from ..core.storage import ROSContainer
 from . import operators as ops
+from .compressed import plan_compressed_scan
 from .expr import Expr
 
 KIND_VALID = "valid"      # per-(container, as_of) visibility blocks
@@ -345,13 +347,16 @@ def _stores_have_wos(db: VerticaDB, plan) -> bool:
                for host, owner in plan.sources)
 
 
-def fused_plan_params(q, plan, stats=None
+def fused_plan_params(q, plan, stats=None, key_domains=None
                       ) -> Optional[Tuple[str, int, Tuple[int, ...]]]:
     """Static groupby algorithm + domain selection for a cached fused
     closure: dense/packing need per-key domains from container SMAs;
     unknown/oversized falls to sort for one key and to the general path
     (runtime bounds) for composite keys.  Returns ``(algo, domain,
-    domains)`` or None when the shape is outside the fused subset."""
+    domains)`` or None when the shape is outside the fused subset.
+    ``key_domains`` overrides the plan's SMA-derived domains (the
+    compressed-domain path groups dict columns on union codes, whose
+    domain is the dictionary size)."""
     if not (q.aggs or q.group_by):
         return None
     if any(j.how != "inner" for j in q.joins):
@@ -361,7 +366,8 @@ def fused_plan_params(q, plan, stats=None
         algo = "sort"
     domain, domains = 1, ()
     if q.group_by:
-        doms = plan.key_domains or (None,) * len(q.group_by)
+        doms = key_domains if key_domains is not None \
+            else (plan.key_domains or (None,) * len(q.group_by))
         if len(q.group_by) == 1:
             dom = doms[0]
             if algo == "dense" and (dom is None
@@ -457,29 +463,39 @@ def execute_fused(db: VerticaDB, q, plan, as_of: int,
     is outside the fused subset (WOS rows pending, no aggregation, or
     composite keys without static SMA domains) or on sort-cap overflow
     -- the caller falls back to the general pipeline."""
-    if getattr(db, "exec_mode", "auto") == "compressed":
-        raise NotImplementedError(
-            "compressed-domain execution is not ported yet (ROADMAP.md "
-            "queue 1 item 6); use exec_mode 'auto' or 'decoded'")
     if _stores_have_wos(db, plan):
         return None   # WOS rows need the unencoded side-scan
     proj = db.catalog.projections[plan.projection]
     need = sorted(q.scan_columns(proj))
     scan_pred = q.scan_predicate(proj.columns)
-    params = fused_plan_params(q, plan, stats)
+
+    # plan-time code-domain rewrite (engine/compressed.py): predicates on
+    # dict columns become code ranges, group keys stay codes, payloads
+    # late-materialize for survivors only
+    cplan = plan_compressed_scan(db, q, plan, need, scan_pred, as_of)
+    params = fused_plan_params(q, plan, stats,
+                               key_domains=cplan.key_domains(q, plan)
+                               if cplan is not None else None)
     if params is None:
         return None
     algo, domain, domains = params
 
     sig = _plan_signature(db, q, plan, algo, domain, domains, db.block_rows)
+    if cplan is not None:
+        sig = sig + cplan.sig_suffix
     if sig in _SORT_OVERFLOWED:
         return None   # known to exceed the sort cap: don't re-try
 
-    scan = scan_stores_batched(db, plan, need, scan_pred, None, as_of,
-                               stats)
+    if cplan is not None:
+        scan = cplan.scan(db, scan_pred, None, stats)
+        stats.compressed_scan = scan is not None
+    else:
+        scan = scan_stores_batched(db, plan, need, scan_pred, None, as_of,
+                                   stats)
+        if scan is not None:
+            stats.rows_scanned = int(scan.valid.shape[0])
     if scan is None:
         return None   # fully pruned; pipeline builds the empty result
-    stats.rows_scanned = int(scan.valid.shape[0])
 
     # build sides host-side (small dims); the dim predicate filters here,
     # which is the SIP effect pushed all the way into the probe
@@ -495,5 +511,6 @@ def execute_fused(db: VerticaDB, q, plan, as_of: int,
                                   tuple(q.aggs)))
     stats.plan_cache = "hit" if hit else "miss"
     res = fused(scan.columns, scan.valid, tuple(builds))
-    return _shape_fused_result(q, to_host(res), algo, domain, domains,
-                               stats, sigs=(sig,))
+    out = _shape_fused_result(q, to_host(res), algo, domain, domains,
+                              stats, sigs=(sig,))
+    return cplan.translate(out) if cplan is not None else out

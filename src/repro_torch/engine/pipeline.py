@@ -59,6 +59,9 @@ class ExecStats:
     plan_cache: str = ""            # "hit" / "miss" / "" (not attempted)
     block_cache_hits: int = 0
     block_cache_misses: int = 0
+    # compressed-domain execution telemetry (engine/compressed.py)
+    compressed_scan: bool = False   # code-domain scan + late materialization
+    rows_materialized: int = 0      # survivor rows actually decoded
     snapshot_epoch: int = 0         # pinned cluster snapshot this query read
     # fault/failover telemetry (core/faults.py): failovers = mid-query
     # node crashes absorbed by replanning onto buddies at the pinned

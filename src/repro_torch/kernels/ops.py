@@ -7,8 +7,11 @@ kernels/build.py) or raises, a CPU tensor takes the kernel's plain
 PyTorch version.  Each wrapper counts its kernel launches, so a run can
 show that a path went through the kernels.
 
-Ported: ``bitunpack``, ``seg_preagg`` (the engine's dense GROUP BY),
-``rle_grouped_agg`` -- the three the query path runs -- and
+Ported: ``bitunpack`` (one word stream; ``bitunpack_segments`` unpacks
+the kept blocks of a list of streams in one launch and counts under
+``bitunpack``; ``gather_unpack`` is torch indexing, as the reference's is
+jnp), ``seg_preagg`` (the engine's dense GROUP BY), ``rle_grouped_agg``
+-- the three the query path runs -- and
 ``rle_filter_agg``, ``onehot_groupby``, ``semijoin_probe`` and
 ``delta_decode``, which only this entry point reaches, as in the
 reference, and ``flash_attention``, which the port's LM prefill calls
@@ -25,7 +28,9 @@ from . import hash_groupby as _groupby_mod
 from . import rle_scan_agg as _rle_mod
 from . import seg_preagg as _seg_mod
 from . import sip_probe as _sip_mod
-from .bitunpack import bitunpack, bitunpack_plain
+from .bitunpack import (Segment, bitunpack, bitunpack_plain,
+                        bitunpack_segments, bitunpack_segments_plain,
+                        gather_unpack)
 from .delta_decode import delta_decode, delta_decode_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .hash_groupby import onehot_groupby, onehot_groupby_plain
@@ -57,9 +62,10 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-__all__ = ["bitunpack", "bitunpack_plain", "delta_decode",
+__all__ = ["Segment", "bitunpack", "bitunpack_plain",
+           "bitunpack_segments", "bitunpack_segments_plain", "delta_decode",
            "delta_decode_plain", "flash_attention", "flash_attention_plain",
-           "launch_counts", "onehot_groupby",
+           "gather_unpack", "launch_counts", "onehot_groupby",
            "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
            "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_many",
            "rle_grouped_agg_many_plain", "rle_grouped_agg_plain",

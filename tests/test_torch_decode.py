@@ -143,3 +143,92 @@ def test_to_device_keeps_the_32_bit_lanes():
     assert enc.to_device(np.array([2**31 + 3]), "cpu").dtype == torch.int32
     assert enc.to_device(np.array([0.1]), "cpu").dtype == torch.float32
     assert enc.to_device(np.array([1], np.int8), "cpu").dtype == torch.int8
+
+
+# ----------------------------------------------- compressed-domain access --
+
+def _gather_case(encoding, kind, sql, rng):
+    values = (_float_data(kind, 300, rng) if sql == SQLType.FLOAT
+              else _int_data(kind, 333, rng).astype(np.int64))
+    if kind == "span":                        # deltas wider than 32 bits
+        values = rng.integers(-2**40, 2**40, 333)
+    if kind == "tenths":                      # scale 10, wide deltas
+        values = np.round(rng.uniform(-1e5, 1e5, 300), 1)
+    col = enc.encode(values, sql, encoding, block_rows=BR)
+    ref_col = ref_enc.encode(values, RefSQLType(sql.value),
+                             ref_enc.Encoding(encoding.value), block_rows=BR)
+    return col, ref_col
+
+
+@pytest.mark.parametrize("encoding,kind,sql,packed", [
+    (enc.Encoding.PLAIN, "wide", SQLType.INT, False),
+    (enc.Encoding.PLAIN, "cents", SQLType.FLOAT, False),
+    (enc.Encoding.DELTA_VALUE, "sorted", SQLType.INT, True),
+    (enc.Encoding.DELTA_VALUE, "wide", SQLType.INT, True),
+    (enc.Encoding.DELTA_VALUE, "span", SQLType.INT, False),
+    (enc.Encoding.BLOCK_DICT, "few", SQLType.INT, True),
+    (enc.Encoding.BLOCK_DICT, "runs", SQLType.FLOAT, True),
+    (enc.Encoding.FLOAT_SCALED, "cents", SQLType.FLOAT, True),
+    (enc.Encoding.FLOAT_SCALED, "tenths", SQLType.FLOAT, True),
+])
+def test_gather_decode_like_reference(encoding, kind, sql, packed):
+    """gather_decode_torch == gather_decode_jnp == the full decode at the
+    same (block, row) positions, bit for bit in the 32-bit lanes."""
+    from repro.core.encodings import gather_decode_jnp, upload_jnp
+    import jax.numpy as jnp
+    rng = np.random.default_rng(sum(map(ord, encoding.value + kind)))
+    col, ref_col = _gather_case(encoding, kind, sql, rng)
+    _assert_payload_identical(col, ref_col)
+    inner = col.inner if col.encoding == enc.Encoding.FLOAT_SCALED else col
+    assert any(k.endswith("_packed") for k in inner.arrays) == packed
+    assert enc.random_access_torch(col)
+    b = rng.integers(0, col.n_blocks, 200)
+    r = rng.integers(0, BR, 200)
+    got = enc.gather_decode_torch(col, enc.upload_torch(col, "cpu"),
+                                  torch.as_tensor(b), torch.as_tensor(r))
+    lane = np.float32 if sql == SQLType.FLOAT else np.int32
+    assert got.numpy().dtype == lane
+    want = np.asarray(gather_decode_jnp(ref_col, upload_jnp(ref_col),
+                                        jnp.asarray(b), jnp.asarray(r)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.astype(lane).view(np.uint32))
+    full = enc.decode_torch(col, "cpu").numpy()[b, r]
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  full.view(np.uint32))
+
+
+@pytest.mark.parametrize("encoding", [e for e in enc.Encoding
+                                      if e != enc.Encoding.AUTO])
+def test_random_access_like_reference(encoding):
+    from repro.core.encodings import random_access_jnp
+    sql = SQLType.FLOAT if encoding == enc.Encoding.FLOAT_SCALED \
+        else SQLType.INT
+    rng = np.random.default_rng(1)
+    col, ref_col = _gather_case(encoding, "cents" if sql == SQLType.FLOAT
+                                else "sorted", sql, rng)
+    assert enc.random_access_torch(col) == random_access_jnp(ref_col)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_code_range_like_reference(seed):
+    """The vectorised per-block code ranges equal the reference's
+    per-block searchsorted, on ragged block dictionaries (1 to 40
+    distinct values a block) and open, empty and out-of-range bounds."""
+    from repro.engine.compressed import _code_range as ref_code_range
+    from repro_torch.engine.compressed import _code_range
+    rng = np.random.default_rng(seed)
+    blocks = [rng.choice(rng.integers(-60, 60, k), BR)
+              for k in rng.integers(1, 41, 9)]
+    values = np.concatenate(blocks).astype(np.int64)
+    col = enc.encode(values, SQLType.INT, enc.Encoding.BLOCK_DICT,
+                     block_rows=BR)
+    ref_col = ref_enc.encode(values, RefSQLType.INT,
+                             ref_enc.Encoding.BLOCK_DICT, block_rows=BR)
+    assert len(set(col.arrays["dict_n"].tolist())) > 3     # ragged
+    for lo, hi in [(None, None), (None, 0), (-5, None), (-10, 10),
+                   (7, 7), (10, -10), (-1000, -900), (900, 1000),
+                   (int(values.min()), int(values.max()))]:
+        for got, want in zip(_code_range(col, lo, hi),
+                             ref_code_range(ref_col, lo, hi)):
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want, err_msg=(lo, hi))

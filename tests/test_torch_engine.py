@@ -273,10 +273,6 @@ def test_port_only_entry_points_raise_until_ported():
     for call in (db.serve, db.attach_mesh, lambda: db.rejoin_node(0)):
         with pytest.raises(NotImplementedError):
             call()
-    db.exec_mode = "compressed"
-    with pytest.raises(NotImplementedError):
-        db.query("lineitem").group_by("l_suppkey") \
-            .agg(n=("*", "count")).collect()
     assert db.epochs.n_pinned() == 0
 
 

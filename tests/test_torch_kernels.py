@@ -14,6 +14,7 @@ import torch
 
 from repro.core.encodings import pack_words
 from repro.engine import operators as ref_ops
+from repro.kernels import ops as ref_kops
 from repro.kernels import ref
 from repro.kernels.bitunpack import bitunpack_pallas
 from repro.kernels.rle_scan_agg import rle_grouped_agg as rle_pallas
@@ -78,6 +79,108 @@ def test_bitunpack_rejects_bad_shapes():
         ops.bitunpack(words, 5, 64)          # one group holds 32 symbols
     with pytest.raises(ValueError):
         ops.bitunpack(words, 33, 32)
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_gather_unpack_matches_reference(width):
+    """Random access to single symbols == the reference's gather_unpack
+    (jnp) and == the whole-block unpack at the same positions."""
+    from repro.kernels.bitunpack import gather_unpack as ref_gather
+    rng = np.random.default_rng(100 + width)
+    nb, br = 4, 96
+    syms = rng.integers(0, 1 << width, (nb, br), dtype=np.uint64)
+    words = pack_words(syms.astype(np.int64), width)
+    b = rng.integers(0, nb, 300)
+    r = rng.integers(0, br, 300)
+    got = ops.gather_unpack(_t(words.view(np.int32)), width, _t(b), _t(r))
+    assert got.dtype == torch.int32
+    want = np.asarray(ref_gather(jnp.asarray(words), width, jnp.asarray(b),
+                                 jnp.asarray(r)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), ops.bitunpack(_t(words.view(np.int32)), width,
+                                   br).numpy()[b, r])
+
+
+def _segment_case(rng, br, widths, kept_lists, nb=5):
+    """One segment per width: random symbols, a base that wraps (values
+    near the int32 limits), and the given kept list."""
+    segs, want = [], []
+    for width, kept in zip(widths, kept_lists):
+        syms = rng.integers(0, 1 << width, (nb, br), dtype=np.uint64)
+        words = pack_words(syms.astype(np.int64), width)
+        base = rng.choice(np.array([2**31 - 1, -2**31, 7, -1], np.int64),
+                          nb).astype(np.int32)
+        segs.append(ops.Segment(_t(words.view(np.int32)), width, _t(base),
+                                None if kept is None
+                                else np.asarray(kept, np.int64)))
+        k = np.arange(nb) if kept is None else np.asarray(kept, np.int64)
+        want.append(np.asarray(ref_kops.bitunpack(
+            jnp.asarray(words[k]), width, br, jnp.asarray(base[k]),
+            force_ref=True)).reshape(len(k), br))
+    return segs, want
+
+
+@pytest.mark.parametrize("br", [64, 96, 4096])
+def test_bitunpack_segments_match_reference_per_segment(br):
+    """The segment list's plain version, segment by segment, against the
+    reference's bitunpack oracle on the kept blocks: mixed widths, an
+    empty and partial kept lists, every block, a wrapping base."""
+    rng = np.random.default_rng(br)
+    widths = (1, 6, 21, 31, 32, 13)
+    kept = ([4, 0, 2], [], None, [1], [0, 1, 2, 3, 4], [3, 3])
+    segs, want = _segment_case(rng, br, widths, kept)
+    got = ops.bitunpack_segments(segs, br)
+    assert got.dtype == torch.int32 and got.shape == (
+        sum(len(w) for w in want), br)
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(want))
+    one = ops.bitunpack(segs[2].words, widths[2], br, base=segs[2].base)
+    np.testing.assert_array_equal(one.numpy(), want[2])
+
+
+def test_segment_table_is_what_the_kernel_reads():
+    """The host-side segment table, read by the kernel's own rules (a
+    binary search of the first-output-block column for the last entry at
+    or below each output block, the kept list by index from the table's
+    start), names the right words, stride, base, width and block for
+    every output block -- empty segments first, inside and last."""
+    from repro_torch.kernels.bitunpack import segment_table
+    rng = np.random.default_rng(7)
+    kept = ([], [2, 0], None, [], [1, 1, 3], [])
+    segs, _ = _segment_case(rng, 64, (3, 5, 7, 9, 11, 13), kept)
+    table = segment_table(segs)
+    n = len(segs)
+    fields = table[: n * 8].reshape(n, 8)
+    out_blocks = []
+    for si, s in enumerate(segs):
+        out_blocks += [(si, k) for k in range(s.n_out)]
+    for g, (si, k) in enumerate(out_blocks):
+        lo, hi = 0, n - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            lo, hi = (mid, hi) if fields[mid, 5] <= g else (lo, mid - 1)
+        assert lo == si, (g, lo, si)
+        f = fields[lo]
+        local = g - f[5]
+        blk = local if f[3] < 0 else table[f[3] + local]
+        want_blk = k if kept[si] is None else kept[si][k]
+        assert (local, blk) == (k, want_blk)
+        s = segs[si]
+        assert (f[0], f[1], f[2], f[6]) == (
+            s.words.data_ptr(), s.words.stride(0), s.base.data_ptr(),
+            s.width)
+    assert sum(s.n_out for s in segs) == len(out_blocks) == 10
+
+
+def test_bitunpack_segments_rejects_bad_lists():
+    words = torch.zeros((3, 6), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.bitunpack_segments([], 64)
+    with pytest.raises(ValueError):
+        ops.bitunpack_segments([ops.Segment(words, 3, kept=np.array([3]))],
+                               64)
+    with pytest.raises(ValueError):
+        ops.bitunpack_segments([ops.Segment(words, 4)], 64)
 
 
 # ------------------------------------------------------------ seg_preagg --
