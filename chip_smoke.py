@@ -103,7 +103,31 @@ Phases, one line each (any failure raises and the script exits non-zero):
    from the prefill cache against a prefill of S + 1 tokens (max |logit
    gap| < 0.5, tests/test_models.py's tolerance) and the prefill through
    the plain attention instead of the kernel (< 0.5); then one profile
-   of a prefill and of a decode step (device kernels only).
+   of a prefill and of a decode step (device kernels only);
+9. segmented execution (``segmented_phase``; it runs after phase 7 and
+   before phase 8, and frees its databases first) on 4 logical shards of
+   the card (``make_query_mesh(4)``): Q1-Q7 and Qorders on the main
+   database (after the trickle) with a fresh block cache, cold then warm,
+   each segmented with no exchange overflow and equal to the oracle and
+   to its mesh-detached run (``[segmented]`` lines: route, exchange,
+   cold/warm ms beside the single-node warm ms, stage ms, slab MB,
+   launches); ``[launches] path=segmented`` zeroed just before and read
+   just after (all three query kernels must launch, Q4's
+   rle_grouped_agg once a run), and seg_preagg held against its plain
+   version on the inputs of each segmented shape (JSON rows named
+   ``seg-Q..``).  Then tests/test_segmented_exec.py's star layout at
+   1500x (6,000,000 sales, 450,000 customer, 60,000 supplier, 3,000,000
+   parts, 30 promo rows; 4 nodes, K=1): the four join templates must
+   take "local", "local", "resegment", "broadcast" and match a numpy
+   oracle and the mesh-detached run, loaded, with node 2 failed (its warm
+   slabs evicted, buddies serving), after a 10,000-row trickle while it
+   is down, and after ``rejoin_node`` and ``recover_node``
+   (``[star]``, ``[fail]``, ``[recover]`` lines, ``[launches]
+   path=segmented-star`` summing the segmented runs).  Last the Database
+   Designer over two star queries, ``create_projection(populate=True)``
+   of the first projection it proposes, and the query the planner routes
+   to it against the oracle (``[design]``).  ``[step]`` lines give each
+   step's seconds.
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
@@ -118,7 +142,8 @@ flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
 ``bound_share``, the bound over ``kernel_device_ms``; ``launches``:
 the run of the kernel's path -- the main path, phase 6 for the
 whole-scan bitunpack row, phase 5 for the four kernels only ``ops``
-reaches, or phase 8's prefill shape), and
+reaches, phase 9's SF1 runs for the ``seg-`` seg_preagg rows, or phase
+8's prefill shape), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
@@ -1328,9 +1353,10 @@ def profile_queries(db, warm) -> None:
              top_kernel_ms=f"{by_name[top]:.4f}")
 
 
-def run_trickle(db, fact, dim, device) -> None:
+def run_trickle(db, fact, dim, device) -> dict:
     """Phase 7: pending WOS rows force the general path, then the tuple
-    mover drains them and the fused path returns."""
+    mover drains them and the fused path returns.  Returns the lineitem
+    rows the database holds after it."""
     from repro_torch.data import star_schema
     more, _ = star_schema(N_TRICKLE, N_DIM, seed=1)
     t = db.begin()
@@ -1350,6 +1376,7 @@ def run_trickle(db, fact, dim, device) -> None:
                                      f"{st.fused}")
             _say("trickle", stage=stage, name=name, fused=st.fused,
                  route=st.groupby_algorithm, oracle="match")
+    return both
 
 
 # ------------------------------------------------------- compressed path --
@@ -1426,13 +1453,13 @@ def _same_result(name, a, b) -> None:
     kb = np.asarray(b[key]).astype(np.int64)
     oa, ob = np.argsort(ka, kind="stable"), np.argsort(kb, kind="stable")
     if not np.array_equal(ka[oa], kb[ob]):
-        raise AssertionError(f"{name}: compressed and decoded groups differ")
+        raise AssertionError(f"{name}: the two runs' groups differ")
     for c in a:
         x, y = np.asarray(a[c])[oa], np.asarray(b[c])[ob]
         same = np.array_equal(x, y) if x.dtype.kind in "iub" else \
             np.allclose(x, y, rtol=1e-4, atol=0)
         if not same:
-            raise AssertionError(f"{name}.{c}: compressed != decoded")
+            raise AssertionError(f"{name}.{c}: the two runs differ")
 
 
 def _comp_query(db, name, qb, mode, budget, fact, dim, table, device,
@@ -1591,6 +1618,414 @@ def compressed_phase(db, fact, dim, device):
     if not all(totals.values()):
         raise AssertionError(f"compressed path never launched: {totals}")
     return [whole_scan_row(db2, totals["bitunpack"], device)]
+
+
+# ------------------------------------------------------- segmented path --
+
+SEG_SHARDS = 4
+SEG_CACHE = 8 << 30               # block cache of the segmented runs
+# tests/test_segmented_exec.py::make_db's star at STAR_SCALE times its
+# rows (promo stays 30 rows: its keys are days); the join templates with
+# the exchange the planner must pick at this scale (planner/cost.py:
+# parts' broadcast 3,000,000 x 16 B x 4 nodes > the 6,000,000 x 16 B
+# resegment)
+STAR_SCALE = 1500
+STAR_ROWS = {"sales": 4000, "customer": 300, "supplier": 40, "parts": 2000}
+N_PROMO = 30
+STAR_JOINS = {
+    "customer": (("custkey", "c_custkey"), "c_nation", "local"),
+    "supplier": (("suppkey", "s_suppkey"), "s_region", "local"),
+    "parts": (("partkey", "p_partkey"), "p_cat", "resegment"),
+    "promo": (("day", "pr_day"), "pr_kind", "broadcast"),
+}
+STAR_TRICKLE = 10_000
+STAR_FAILED = 2
+
+
+def _same_answer(name, a, b) -> None:
+    if KEY_COL.get(name, "") is None:            # a scalar query
+        for c in a:
+            x, y = np.asarray(a[c]), np.asarray(b[c])
+            if not (np.array_equal(x, y) if x.dtype.kind in "iub"
+                    else np.allclose(x, y, rtol=1e-4, atol=0)):
+                raise AssertionError(f"{name}.{c}: the runs differ")
+        return
+    _same_result(name, a, b)
+
+
+def _seg_bytes(db) -> int:
+    """Device bytes of the cached segmented slabs and WOS buffers."""
+    from repro_torch.core.block_cache import KIND_SEG, KIND_WOS
+    return sum(nb for key, (_, nb) in db.block_cache._entries.items()
+               if key[2] in (KIND_SEG, KIND_WOS))
+
+
+def _timed(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _seg_runs(db, name, qb, device, want, label):
+    """``qb`` cold then warm on the attached mesh: each run segmented on
+    every shard with no exchange overflow and equal to ``want`` (the
+    mesh-detached answer).  Returns (ms, launches, stats) per run."""
+    from repro_torch.kernels import ops
+    runs = []
+    for _ in range(2):
+        before = ops.launch_counts()
+        res, ms = _timed(qb.collect, device)
+        after = ops.launch_counts()
+        st = qb.stats
+        if not st.segmented or st.n_shards != SEG_SHARDS \
+                or st.reseg_overflow != 0:
+            raise AssertionError(
+                f"{label} {name}: segmented={st.segmented} n_shards="
+                f"{st.n_shards} reseg_overflow={st.reseg_overflow}")
+        if db.epochs.n_pinned() != 0:
+            raise AssertionError(f"{label} {name} leaked an epoch pin")
+        want(res)
+        runs.append((ms, {k: after[k] - before[k] for k in MAIN_KERNELS},
+                     st))
+    return runs
+
+
+def _seg_profile(phase, name, qb, warm_ms) -> None:
+    """One more warm run under torch.profiler: device kernels only, the
+    share of the untraced warm wall time the card was busy, and the
+    kernel that took most of the device time."""
+    dev_ms, by_name = _profile(qb.collect, kernels_only=True)
+    if dev_ms is None:
+        _say("profile", path=phase, name=name, device_ms="not measured")
+        return
+    top = max(by_name, key=by_name.get)
+    _say("profile", path=phase, name=name, device_ms=f"{dev_ms:.4f}",
+         warm_ms=f"{warm_ms:.3f}", busy_share=f"{dev_ms / warm_ms:.4f}",
+         top_kernel=top.replace(" ", "_")[:60],
+         top_kernel_ms=f"{by_name[top]:.4f}")
+
+
+def _say_seg(phase, name, runs, single_ms, db, **kw) -> None:
+    (cold, lc, sc), (warm, lw, sw) = runs
+    _say(phase, name=name, route=sw.groupby_algorithm.replace(" ", "_"),
+         exchange=sw.exchange or "none", slab=f"{sc.seg_slab}/{sw.seg_slab}",
+         cold_ms=f"{cold:.3f}", warm_ms=f"{warm:.3f}",
+         single_warm_ms=f"{single_ms:.3f}",
+         stage_ms_warm=json.dumps({k: round(v, 3) for k, v in
+                                   sw.stage_ms.items()},
+                                  separators=(",", ":")),
+         slab_mb=f"{_seg_bytes(db) / 1e6:.1f}",
+         launches_cold="/".join(str(lc[k]) for k in MAIN_KERNELS),
+         launches_warm="/".join(str(lw[k]) for k in MAIN_KERNELS),
+         plan_cache=sw.plan_cache, **kw)
+
+
+def build_star(device, scale=None, seed=7):
+    """tests/test_segmented_exec.py::make_db at ``scale`` times its rows:
+    sales segmented by custkey; customer co-located, supplier
+    replicated, parts segmented by its key (resegmented to), promo (30
+    rows) segmented off the join key (broadcast); 4 nodes, K=1,
+    block_rows 4096, loaded in one direct-to-ROS commit.  Returns the
+    database and its rows (the dimensions keyed by position)."""
+    from repro_torch.core import ColumnDef, SQLType, TableSchema, VerticaDB
+    rng = np.random.default_rng(seed)
+    scale = STAR_SCALE if scale is None else scale
+    n = {t: r * scale for t, r in STAR_ROWS.items()}
+    db = VerticaDB(n_nodes=4, k_safety=1, block_rows=4096,
+                   cache_budget_bytes=SEG_CACHE, device=device)
+    C = ColumnDef
+    db.create_table(TableSchema("sales", (
+        C("sale_id"), C("custkey"), C("suppkey"), C("partkey"), C("day"),
+        C("qty"), C("delta"), C("price", SQLType.FLOAT))),
+        sort_order=("day",), segment_by=("custkey",))
+    db.create_table(TableSchema("customer", (C("c_custkey"),
+                                             C("c_nation"))),
+                    sort_order=("c_custkey",), segment_by=("c_custkey",))
+    db.create_table(TableSchema("supplier", (C("s_suppkey"),
+                                             C("s_region"))),
+                    sort_order=("s_suppkey",), segment_by=())
+    db.create_table(TableSchema("parts", (C("p_partkey"), C("p_cat"))),
+                    sort_order=("p_partkey",), segment_by=("p_partkey",))
+    db.create_table(TableSchema("promo", (C("pr_day"), C("pr_kind"))),
+                    sort_order=("pr_day",), segment_by=("pr_day",))
+    data = {"sales": _star_sales(rng, n["sales"], 0, n),
+            "customer": {"c_custkey": np.arange(n["customer"]),
+                         "c_nation": rng.integers(0, 12, n["customer"])},
+            "supplier": {"s_suppkey": np.arange(n["supplier"]),
+                         "s_region": rng.integers(0, 5, n["supplier"])},
+            "parts": {"p_partkey": np.arange(n["parts"]),
+                      "p_cat": rng.integers(0, 9, n["parts"])},
+            "promo": {"pr_day": np.arange(N_PROMO) * 12,
+                      "pr_kind": rng.integers(0, 4, N_PROMO)}}
+    t = db.begin(direct_to_ros=True)
+    for table, rows in data.items():
+        db.insert(t, table, rows)
+    db.commit(t)
+    return db, data, n
+
+
+def _star_sales(rng, n_rows, base, n):
+    return {"sale_id": base + np.arange(n_rows, dtype=np.int64),
+            "custkey": rng.integers(0, n["customer"], n_rows),
+            "suppkey": rng.integers(0, n["supplier"], n_rows),
+            "partkey": rng.integers(0, n["parts"], n_rows),
+            "day": rng.integers(0, 365, n_rows),
+            "qty": rng.integers(1, 50, n_rows),
+            "delta": rng.integers(-40, 40, n_rows),
+            "price": np.round(rng.normal(100, 10, n_rows), 2)}
+
+
+def star_query(db, dim):
+    on, carried, _ = STAR_JOINS[dim]
+    return (db.query("sales").join(dim, on=on, cols=(carried,))
+            .group_by(carried)
+            .agg(n=("*", "count"), s=("qty", "sum"), mx=("price", "max")))
+
+
+def star_oracle(dim, data):
+    """numpy answer of ``star_query``: the dimensions are keyed by
+    position (promo by day / 12 on the days divisible by 12)."""
+    s = data["sales"]
+    if dim == "promo":
+        d = s["day"]
+        m = (d % 12 == 0) & (d // 12 < N_PROMO)
+        key = data["promo"]["pr_kind"][d[m] // 12]
+    else:
+        (fk, _), carried, _ = STAR_JOINS[dim]
+        m = np.ones(s["day"].size, bool)
+        key = data[dim][carried][s[fk]]
+    keys, inv = np.unique(key, return_inverse=True)
+    mx = np.full(keys.size, -np.inf)
+    np.maximum.at(mx, inv.reshape(-1), s["price"][m])
+    return keys, {"n": np.bincount(inv.reshape(-1)),
+                  "s": np.bincount(inv.reshape(-1), s["qty"][m]),
+                  "mx": mx}
+
+
+def star_check(dim, res, data) -> None:
+    keys, want = star_oracle(dim, data)
+    carried = STAR_JOINS[dim][1]
+    got = np.asarray(res[carried]).astype(np.int64)
+    order = np.argsort(got, kind="stable")
+    if not np.array_equal(got[order], keys):
+        raise AssertionError(f"star {dim}: group keys differ")
+    for agg in ("n", "s"):
+        if not np.array_equal(np.asarray(res[agg])[order].astype(np.int64),
+                              want[agg].astype(np.int64)):
+            raise AssertionError(f"star {dim}.{agg}: ints differ")
+    if not np.allclose(np.asarray(res["mx"])[order], want["mx"],
+                       rtol=1e-4, atol=0):
+        raise AssertionError(f"star {dim}.mx differs")
+
+
+def _star_round(db, data, device, step, totals, profile=False):
+    """The four join templates cold then warm on the mesh (first, so the
+    cold run decodes), each equal to the oracle and to the warm
+    mesh-detached run after it, each with the exchange the planner must
+    pick; their launches add to ``totals``.  ``profile`` adds a profiled
+    warm run of each."""
+    mesh = db.mesh
+    for dim in STAR_JOINS:
+        got = []
+        qb = star_query(db, dim)
+        runs = _seg_runs(db, dim, qb, device,
+                         lambda r, dim=dim: (star_check(dim, r, data),
+                                             got.append(r)), "star")
+        if profile:
+            _seg_profile("star", dim, qb, runs[1][0])
+        db.detach_mesh()
+        single = star_query(db, dim)
+        single.collect()
+        res, single_ms = _timed(single.collect, device)   # warm
+        db.attach_mesh(mesh)
+        star_check(dim, res, data)
+        for r in got:
+            _same_star(dim, r, res)
+        for _, launched, _ in runs:
+            for k, v in launched.items():
+                totals[k] += v
+        exch = runs[1][2].exchange
+        if exch != STAR_JOINS[dim][2]:
+            raise AssertionError(f"star {dim}: exchange {exch}, expected "
+                                 f"{STAR_JOINS[dim][2]}")
+        _say_seg("star", dim, runs, single_ms, db, step=step,
+                 oracle="match", single="match")
+
+
+def _same_star(dim, a, b) -> None:
+    carried = STAR_JOINS[dim][1]
+    oa = np.argsort(np.asarray(a[carried]), kind="stable")
+    ob = np.argsort(np.asarray(b[carried]), kind="stable")
+    for c in a:
+        x, y = np.asarray(a[c])[oa], np.asarray(b[c])[ob]
+        if not (np.array_equal(x, y) if x.dtype.kind in "iub"
+                else np.allclose(x, y, rtol=1e-4, atol=0)):
+            raise AssertionError(f"star {dim}.{c}: segmented != single")
+
+
+def segmented_phase(db, fact, dim, device):
+    """Phase 9: segmented execution on SEG_SHARDS logical shards of the
+    card.  (1) Q1-Q7 and Qorders on the main SF1 database, cold (a fresh
+    block cache: decodes and slab builds) then warm, each equal to the
+    oracle and to its mesh-detached run; seg_preagg's inputs captured and
+    held against its plain version per shape.  (2) The star layout of
+    tests/test_segmented_exec.py at STAR_SCALE x: the four join templates
+    (local, local, resegment, broadcast) against a numpy oracle and the
+    mesh-detached run; then a node fails (its slabs are evicted, buddies
+    serve), a trickle lands while it is down, it rejoins and recovers, and
+    every step is checked again.  (3) The Database Designer on the star:
+    ``design`` over two star queries, ``create_projection(populate=True)``
+    of the first projection it proposes, and a query the planner routes
+    to it against the oracle.  Returns seg_preagg's JSON rows."""
+    import torch
+    from repro_torch.core.block_cache import BlockCache, KIND_SEG
+    from repro_torch.core.recovery import recover_node
+    from repro_torch.distributed import make_query_mesh
+    from repro_torch.engine import col
+    from repro_torch.kernels import ops
+    from repro_torch.planner import design, plan_query
+
+    # ---- (1) the main SF1 database on 4 shards ----
+    t_step = time.perf_counter()
+    queries = make_queries(db)
+    single, single_ms = {}, {}
+    for name, qb in queries.items():          # mesh detached, warm
+        qb.collect()
+        single[name], single_ms[name] = _timed(qb.collect, device)
+        check(name, single[name], fact, dim)
+    saved = db.block_cache
+    db.block_cache = BlockCache(SEG_CACHE)    # cold runs decode and slab
+    db.collect_stage_timing = True
+    db.attach_mesh(make_query_mesh(SEG_SHARDS, device=device))
+    try:
+        warm = {}
+        with SegCapture() as capture:
+            ops.reset_launch_counts()
+            for name, qb in queries.items():
+                capture.query = f"seg-{name}"
+                runs = _seg_runs(db, name, qb, device,
+                                 lambda r, name=name: (
+                                     check(name, r, fact, dim),
+                                     _same_answer(name, r, single[name])),
+                                 "sf1")
+                if name == "Q4" and any(
+                        r[1]["rle_grouped_agg"] != 1 for r in runs):
+                    raise AssertionError("segmented Q4 did not launch "
+                                         "rle_grouped_agg once a run")
+                _say_seg("segmented", name, runs, single_ms[name], db,
+                         oracle="match", single="match")
+                warm[name] = runs[1][0]
+            launches = ops.launch_counts()
+        _say("launches", path="segmented",
+             **{k: launches[k] for k in MAIN_KERNELS})
+        missing = [k for k in MAIN_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"segmented path never launched: {missing}")
+        rows = seg_preagg_rows(capture, launches["seg_preagg"], device)
+        for name, qb in queries.items():
+            _seg_profile("segmented", name, qb, warm[name])
+    finally:
+        db.detach_mesh()
+        db.block_cache = saved
+        db.collect_stage_timing = False
+    _say("step", path="segmented", name="sf1",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+
+    # ---- (2) the star layout: three exchanges, failure and recovery ----
+    t_step = time.perf_counter()
+    star, data, n = build_star(device)
+    _say("step", path="segmented", name="star_load",
+         rows=json.dumps(n, separators=(",", ":")),
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+    star.collect_stage_timing = True
+    star.attach_mesh(make_query_mesh(SEG_SHARDS, device=device))
+    totals = {k: 0 for k in MAIN_KERNELS}    # the segmented runs' launches
+    t_step = time.perf_counter()
+    _star_round(star, data, device, "loaded", totals, profile=True)
+    _say("step", path="segmented", name="loaded",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+
+    t_step = time.perf_counter()
+    warm_slabs = sum(k[2] == KIND_SEG for k in star.block_cache.keys())
+    star.fail_node(STAR_FAILED)
+    left = sum(k[2] == KIND_SEG for k in star.block_cache.keys())
+    if warm_slabs - left <= 0:
+        raise AssertionError("fail_node evicted no warm slab")
+    _say("fail", node=STAR_FAILED, slabs_warm=warm_slabs,
+         slabs_evicted=warm_slabs - left)
+    _star_round(star, data, device, "node_down", totals)
+    more = _star_sales(np.random.default_rng(8), STAR_TRICKLE,
+                       10 * n["sales"], n)
+    t = star.begin()
+    star.insert(t, "sales", more)
+    star.commit(t)
+    data["sales"] = {c: np.concatenate([data["sales"][c], more[c]])
+                     for c in more}
+    _star_round(star, data, device, "trickle_while_down", totals)
+    e_join = star.rejoin_node(STAR_FAILED)
+    replayed = recover_node(star, STAR_FAILED)
+    rec = star.nodes[STAR_FAILED].last_recovery
+    if rec.get("complete") is False or star.nodes[STAR_FAILED].recovering:
+        raise AssertionError(f"recovery incomplete: {rec}")
+    _say("recover", node=STAR_FAILED, rejoin_epoch=e_join,
+         replayed=json.dumps(replayed, separators=(",", ":")),
+         last_recovery=json.dumps(rec, separators=(",", ":"), default=str))
+    _star_round(star, data, device, "recovered", totals)
+    _say("launches", path="segmented-star", **totals)
+    if totals["seg_preagg"] == 0:
+        raise AssertionError("the star's segmented runs never launched "
+                             "seg_preagg")
+    _say("step", path="segmented", name="failure_cycle",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+
+    # ---- (3) the Database Designer ----
+    t_step = time.perf_counter()
+    star.detach_mesh()
+    workload = [star.query("sales").group_by("suppkey")
+                .agg(n=("*", "count")),
+                star.query("sales").where(col("day") < 60)
+                .agg(n=("*", "count"), s=("qty", "sum"))]
+    report = design(star, workload)
+    if not report.proposed:
+        raise AssertionError("design proposed no projection")
+    proj = report.proposed[0]
+    t0 = time.perf_counter()
+    star.create_projection(proj, populate=True)
+    populate_s = time.perf_counter() - t0
+    s = data["sales"]
+    oracle_of = [
+        (np.unique(s["suppkey"]), {"n": np.bincount(s["suppkey"])}),
+        (None, {"n": int((s["day"] < 60).sum()),
+                "s": int(s["qty"][s["day"] < 60].sum())})]
+    routed = []
+    for qi, qb in enumerate(workload):
+        plan = plan_query(star, qb.to_ir())
+        if plan.projection != proj.name:
+            continue
+        res = qb.collect()
+        keys, want = oracle_of[qi]
+        for agg, w in want.items():
+            got = np.asarray(res[agg]).astype(np.int64)
+            if keys is not None:
+                got = got[np.argsort(np.asarray(res["suppkey"]))]
+                w = w[keys]
+            if not np.array_equal(got.reshape(-1), np.reshape(w, -1)):
+                raise AssertionError(f"designed projection q{qi}.{agg}")
+        routed.append(qi)
+    if not routed:
+        raise AssertionError(f"no workload query routed to {proj.name}")
+    _say("design", proposed=",".join(p.name for p in report.proposed),
+         populated=proj.name, sort_order=",".join(proj.sort_order),
+         segmented_by=",".join(proj.segmentation.columns),
+         populate_host_s=f"{populate_s:.2f}",
+         routed=",".join(f"q{i}" for i in routed), oracle="match",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+    del star
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # -------------------------------------------------------------- LM path --
@@ -1994,7 +2429,8 @@ def main() -> int:
     rows += api_rows
 
     rows += compressed_phase(db, fact, dim, device)
-    run_trickle(db, fact, dim, device)
+    fact = run_trickle(db, fact, dim, device)
+    rows += segmented_phase(db, fact, dim, device)
     torch.cuda.synchronize()
     del db, capture                      # the LM phase needs the memory
     gc.collect()

@@ -1,8 +1,8 @@
 """Vertica core on torch: projections, encodings, storage, MVCC, K-safety.
 
-Mirrors ``src/repro/core/__init__.py``, less what is not ported yet
-(``recovery``, the segmented device helpers); adds
-``carry`` (state_of / database_from_state).
+Mirrors ``src/repro/core/__init__.py`` (with the torch decode and upload
+in place of the jax ones); adds ``carry`` (state_of /
+database_from_state).
 """
 from .block_cache import BlockCache, CacheStats
 from .carry import database_from_state, state_of

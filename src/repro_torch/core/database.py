@@ -18,9 +18,9 @@ transaction, distribution and availability semantics.
 Mirrors ``src/repro/core/database.py`` with these changes: the database
 holds the torch ``device`` its block cache and queries use (``"cuda"`` by
 default; asking for CUDA without a GPU raises), ``query()`` returns the
-port's QueryBuilder, and ``serve()``, ``attach_mesh()``, ``rejoin_node()``
-and ``create_projection(populate=True)`` raise NotImplementedError until
-the slices that bring them (ROADMAP.md queue 1).
+port's QueryBuilder, and ``serve()`` raises NotImplementedError until the
+slice that brings it (ROADMAP.md queue 1 item 8).  ``attach_mesh()`` takes
+a mesh of the port (distributed/mesh.py): logical shards on one device.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .block_cache import BlockCache
+from .block_cache import BlockCache, KIND_SEG, KIND_WOS
 from .catalog import Catalog, TableEntry
 from .epochs import EpochManager
 from .faults import (NULL_INJECTOR, FaultInjector, NodeCrashError,
@@ -175,6 +175,10 @@ class VerticaDB:
         # device-resident block cache, shared by every store of this DB
         # (our HBM analog of Vertica leaning on the OS page cache)
         self.block_cache = BlockCache(cache_budget_bytes)
+        # mesh for the segmented executor (engine/segmented.py);
+        # None = single-device execution
+        self.mesh = None
+        self.mesh_axis = "data"
         # compressed-domain execution policy (engine/compressed.py):
         #   "auto"       -- code-domain scan only when the decoded working
         #                   set is not already device-resident
@@ -202,10 +206,6 @@ class VerticaDB:
 
     def create_projection(self, proj: ProjectionDef, *,
                           populate: bool = False):
-        if populate:
-            raise NotImplementedError(
-                "create_projection(populate=True) needs core/recovery.py, "
-                "not ported yet (ROADMAP.md queue 1 item 9)")
         self.catalog.add_projection(proj)
         self._init_stores(proj)
         buddy = None
@@ -214,6 +214,11 @@ class VerticaDB:
             buddy = proj.buddy_def()
             self.catalog.add_projection(buddy)
             self._init_stores(buddy)
+        if populate:
+            from .recovery import refresh_projection
+            refresh_projection(self, proj.name)
+            if buddy is not None:
+                refresh_projection(self, buddy.name)
 
     def _init_stores(self, proj: ProjectionDef):
         for node in self.nodes:
@@ -223,10 +228,24 @@ class VerticaDB:
     # ----------------------------------------------------------- query --
 
     def attach_mesh(self, mesh=None, axis: str = "data"):
-        """Segmented multi-device execution: not ported yet."""
-        raise NotImplementedError(
-            "attach_mesh: segmented execution is not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
+        """Route aggregate queries through the segmented executor
+        (engine/segmented.py).  With no argument, builds a query mesh of
+        one logical shard per visible device of ``self.device``'s kind
+        (distributed/mesh.py).  Tuple-to-shard ownership follows each
+        projection's SegmentationSpec hash ring
+        (core/segmentation.shard_of)."""
+        if mesh is None:
+            from ..distributed.mesh import make_query_mesh
+            mesh = make_query_mesh(axis=axis, device=self.device)
+        elif mesh.device.type != self.device.type:
+            raise ValueError(f"attach_mesh: a mesh on {mesh.device} for a "
+                             f"database on {self.device}")
+        self.mesh, self.mesh_axis = mesh, axis
+        return mesh
+
+    def detach_mesh(self):
+        """Back to single-device execution."""
+        self.mesh = None
 
     # ---------------------------------------------------------- faults --
 
@@ -419,6 +438,15 @@ class VerticaDB:
                 store.wos.append(data, epoch, segs, ring=ring)
                 n = len(segs)
                 store.wos_delete_epochs.append(np.zeros(n, np.int64))
+        # stream the fresh WOS batches into their per-shard device buffers
+        # while the rows are hot: a trickle-load commit pre-pays the
+        # segmented executor's delta slab, so the next query only uploads
+        # a visibility mask (engine/segmented.prewarm_wos_buffer; no-op
+        # without an attached mesh)
+        if self.mesh is not None and not txn.direct_to_ros:
+            from ..engine.segmented import prewarm_wos_buffer
+            for (proj_name, node_id) in txn.staged:
+                prewarm_wos_buffer(self, node_id, proj_name)
         self.locks.release_all(txn.id)
         return epoch
 
@@ -708,6 +736,40 @@ class VerticaDB:
         for store in node.stores.values():
             store.wos.clear()          # WOS is memory: lost on failure
             store.wos_delete_epochs = []
+        self._evict_failed_node_slabs(node_id)
+
+    def _evict_failed_node_slabs(self, node_id: int) -> int:
+        """Evict every KIND_SEG slab whose source set references the
+        failed node.  Slab keys embed (host, owner, container-ids) items
+        (engine/segmented._source_sig); a slab sourced from the dead
+        node's placement predates the failover routing and a warm hit on
+        it would silently serve a pre-failure mesh identity."""
+
+        def references_node(key) -> bool:
+            _, col, kind = key
+            if kind == KIND_WOS:
+                # (("wos", version, mesh_sig), host, owner): the buffer
+                # is one store's rows -- the dead node's are gone with it
+                try:
+                    return col[1] == node_id
+                except (TypeError, IndexError):
+                    return True
+            if kind != KIND_SEG:
+                return False
+            if not (isinstance(col, tuple) and len(col) >= 3):
+                return True          # unknown key shape: evict, stay safe
+            try:
+                items = col[2][0]
+                return any(host == node_id for host, _owner, _ids in items)
+            except (TypeError, ValueError, IndexError):
+                return True
+        n = 0
+        for proj in self.catalog.projections.values():
+            if proj.buddy_of is not None:
+                continue             # slabs are namespaced by the primary
+            n += self.block_cache.invalidate_where(
+                f"seg:{proj.name}", references_node)
+        return n
 
     def rejoin_node(self, node_id: int):
         """Bring a failed node back ONLINE but not yet SERVING: it starts
@@ -715,9 +777,8 @@ class VerticaDB:
         while reads keep routing to its buddy; ``recovery.recover_node``
         then replays only the epochs it missed while down
         (LGE, rejoin_epoch] and flips it back to serving (paper §4.4)."""
-        raise NotImplementedError(
-            "rejoin_node needs core/recovery.py, not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+        from .recovery import rejoin_node
+        return rejoin_node(self, node_id)
 
     # epoch ceilings: the newest epoch that can affect a store's (or a
     # table's) visible state.  Epoch-keyed caches clamp a query's as-of to

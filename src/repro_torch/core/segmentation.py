@@ -8,9 +8,9 @@ without re-splitting files -- exactly the paper's wholesale-transfer trick
 (and the same mechanism our training stack reuses to re-shard data-parallel
 ranks; see train/fault_tolerance.py).
 
-Mirrors ``src/repro/core/segmentation.py``: a verbatim copy of the numpy half.
-The device twins ``hash_columns_jnp``/``shard_of_jnp`` belong to the
-segmented-execution slice and are not ported yet.
+Mirrors ``src/repro/core/segmentation.py``: a verbatim copy of the numpy
+half; the device twins of ``hash_columns``/``shard_of`` are torch functions
+(``hash_columns_torch``/``shard_of_torch``).
 """
 from __future__ import annotations
 
@@ -47,6 +47,49 @@ def shard_of(ring: np.ndarray, n_shards: int) -> np.ndarray:
     only to node routing, never here."""
     return (np.asarray(ring).astype(np.float64) * n_shards
             / float(C_MAX)).astype(np.int64).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# Device twins of hash_columns / shard_of (torch)
+# --------------------------------------------------------------------------
+# The segmented executor builds its ROS slabs ON the device, so ring values
+# and shard assignments are computed there -- bit for bit equal to the
+# numpy originals above, because the host still places build sides and WOS
+# batches with them and a co-located join relies on both agreeing.
+#
+# PyTorch has no full uint32 arithmetic, so the FNV state lives in int64
+# lanes masked to 32 bits.  The ring value is ``hash % 2^32``, the low word
+# of the 64-bit state, and the low word of ``(h ^ w) * prime`` depends only
+# on the low words of ``h ^ w`` and of the prime (0x1B3): the high word the
+# reference's jax twin carries beside it never reaches the result, so it is
+# not computed here.  ``lo * 0x1B3`` stays below 2^41, so no int64 product
+# wraps.
+
+_P_LO = 0x1B3          # low 32 bits of the FNV prime
+_FNV_OFFSET_LO = 0x84222325
+_M32 = 0xFFFFFFFF
+
+
+def hash_columns_torch(*cols):
+    """Device twin of :func:`hash_columns`: int/uint/bool columns (any
+    width up to 64 bits) -> int64 ring values in [0, 2^32), equal to
+    ``hash_columns(...)``.  Signed values hash as their sign-extended
+    int64 words, as ``astype(np.int64)`` makes them."""
+    import torch
+    h = torch.full(cols[0].shape, _FNV_OFFSET_LO, dtype=torch.int64,
+                   device=cols[0].device)
+    for c in cols:
+        v = c.to(torch.int64)
+        for shift in (0, 16, 32, 48):
+            h = ((h ^ ((v >> shift) & 0xFFFF)) * _P_LO) & _M32
+    return h
+
+
+def shard_of_torch(ring, n_shards: int):
+    """Device twin of :func:`shard_of`: floor(ring * n / 2^32) as int32.
+    ``ring < 2^32`` and ``n < 2^31`` keep the int64 product exact."""
+    import torch
+    return ((ring.to(torch.int64) * int(n_shards)) >> 32).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

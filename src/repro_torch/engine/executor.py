@@ -21,8 +21,9 @@ Mirrors ``src/repro/engine/executor.py`` for single-node execution:
 
 Every tensor lives on ``db.device``.  An eligible scan may run in the
 code domain instead (engine/compressed.py, picked by ``db.exec_mode``).
-The deferred/shared serving variants and the segmented snapshot helpers
-are not ported yet.
+The snapshot scans at the end of the scan section feed the segmented
+executor (engine/segmented.py).  The deferred/shared serving variants are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -261,6 +262,99 @@ def wos_visible(store, as_of: int
             if store.wos_delete_epochs
             else np.zeros(len(eps), np.int64))
     return data, (eps <= as_of) & ~((dels > 0) & (dels <= as_of))
+
+
+def wos_scan_host(db: VerticaDB, plan, need: Sequence[str], as_of: int
+                  ) -> Optional[Tuple[Dict[str, np.ndarray], np.ndarray,
+                                      Optional[np.ndarray]]]:
+    """(cols, visibility, ring-values-or-None) of every pending WOS row
+    behind ``plan.sources``.  Ring values were stamped at commit
+    (core/database._stage -> WOS.append), so the segmented executor can
+    place trickle-loaded rows on their owning shard without re-hashing;
+    None means some batch was untagged (caller re-hashes)."""
+    need = sorted(set(need))
+    parts: List[Dict[str, np.ndarray]] = []
+    valids: List[np.ndarray] = []
+    rings: List[Optional[np.ndarray]] = []
+    tagged = True
+    for host, owner in plan.sources:
+        store = db.nodes[host].stores[owner]
+        wos = wos_visible(store, as_of)
+        if wos is None:
+            continue
+        data, vis = wos
+        parts.append({c: np.asarray(data[c]) for c in need})
+        valids.append(vis)
+        r = store.wos.ring_snapshot()
+        tagged &= r is not None
+        rings.append(r)
+    if not parts:
+        return None
+    cols = {c: np.concatenate([p[c] for p in parts]) for c in need}
+    ring = np.concatenate(rings) if tagged else None
+    return cols, np.concatenate(valids), ring
+
+
+def snapshot_scan_device(db: VerticaDB, plan, need: Sequence[str],
+                         as_of: int, stats
+                         ) -> Optional[Tuple[Dict[str, torch.Tensor],
+                                             np.ndarray]]:
+    """Device-side ROS snapshot for the segmented slab build: the decoded
+    blocks of every container behind ``plan.sources`` (cached, decoded by
+    ``decode_torch``, so packed columns launch ``bitunpack``) are
+    concatenated into one flat device tensor per column -- the columns
+    never round-trip through the host.  Only the visibility mask comes
+    back as numpy: it is computed from host-side delete bitmaps and epoch
+    arrays anyway, and uploading one bool array is the cheap direction.
+    No SMA pruning here -- the slab caches ALL visible rows; per-query
+    predicate pruning happens at slab-block granularity downstream."""
+    need = sorted(set(need))
+    col_parts: Dict[str, List[torch.Tensor]] = {name: [] for name in need}
+    valid_parts: List[np.ndarray] = []
+    for host, owner in plan.sources:
+        store = db.nodes[host].stores[owner]
+        for c in store.containers:
+            if not need:
+                continue
+            stats.containers_scanned += 1
+            for name in need:
+                col_parts[name].append(cached_decoded(db, c, name))
+            counts = c.smas[need[0]].counts
+            eff = min(as_of, _container_ceiling(store, c))
+            valid_parts.append(_valid_blocks_np(store, c, eff, counts))
+    if not valid_parts:
+        return None
+    cols = {n: torch.cat([b.reshape(-1) for b in p])
+            for n, p in col_parts.items()}
+    valid = np.concatenate([v.reshape(-1) for v in valid_parts])
+    return cols, valid
+
+
+def snapshot_scan_host(db: VerticaDB, plan, need: Sequence[str],
+                       as_of: int, stats, *, include_wos: bool = True
+                       ) -> Optional[Tuple[Dict[str, np.ndarray],
+                                           np.ndarray]]:
+    """Host-side snapshot of every row behind ``plan.sources`` (ROS via
+    the device block cache, plus pending WOS rows unless
+    ``include_wos=False``), as flat numpy arrays with a visibility mask.
+    The decode itself still runs through the cached device blocks."""
+    need = sorted(set(need))
+    ros = scan_stores_batched(db, plan, need, None, None, as_of, stats)
+    parts: List[Dict[str, np.ndarray]] = []
+    valids: List[np.ndarray] = []
+    if ros is not None:
+        host = to_host(dict(ros.columns, __valid=ros.valid))
+        valids.append(host.pop("__valid"))
+        parts.append(host)
+    if include_wos:
+        wos = wos_scan_host(db, plan, need, as_of)
+        if wos is not None:
+            parts.append(wos[0])
+            valids.append(wos[1])
+    if not parts:
+        return None
+    cols = {c: np.concatenate([p[c] for p in parts]) for c in need}
+    return cols, np.concatenate(valids)
 
 
 # ---------------------------------------------------------------------------

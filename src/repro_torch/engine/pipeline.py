@@ -6,11 +6,13 @@ front-end is the logical-plan IR (engine/logical.py); the planner
 and the GroupBy algorithm; this module runs the physical plan over a
 VerticaDB's live nodes on ``db.device`` and returns numpy results.
 
-Routes, in order: the scalar COUNT on RLE runs (host numpy), the
-RLE-direct GROUP BY (the ``rle_grouped_agg`` kernel), the cached fused
-warm path (engine/executor.py), and the general path -- taken when WOS
-rows are pending or the shape is outside the fused subset -- which
-scans, joins, filters and groups step by step.
+Routes, in order: the segmented executor over a query mesh
+(engine/segmented.py; when a mesh is passed or attached, for the shapes of
+its subset), the scalar COUNT on RLE runs (host numpy), the RLE-direct
+GROUP BY (the ``rle_grouped_agg`` kernel), the cached fused warm path
+(engine/executor.py), and the general path -- taken when WOS rows are
+pending or the shape is outside the fused subset -- which scans, joins,
+filters and groups step by step.
 
 Composite group-by keys are packed into one dense integer domain
 (operators.pack_keys) so the single-key GroupBy machinery applies
@@ -19,8 +21,10 @@ switching (§6.1): dense falls back to sort when the observed key domain
 exceeds the table budget, and to a host-side unique-based GroupBy when
 even packed keys would overflow the device integer width.
 
-Not ported yet: the segmented (mesh) route and the deprecated
-``Query``/``JoinSpec`` shims.
+DEPRECATED SHIMS: ``Query`` and ``JoinSpec`` predate the IR (one join,
+one group-by column).  They remain importable from ``repro_torch.engine``
+as thin constructors that lower via ``Query.to_ir()``; new code should use
+``db.query(...)`` (engine/builder.py) or LogicalQuery directly.
 """
 from __future__ import annotations
 
@@ -33,13 +37,67 @@ import torch
 
 from ..core.database import VerticaDB
 from ..core.encodings import Encoding, to_device
-from .logical import LogicalQuery, as_ir
+from .expr import Expr
+from .logical import LogicalJoin, LogicalQuery, as_ir
 from . import executor as fused_exec
 from . import operators as ops
 from .sip import sip_filter
 
+# DEPRECATED back-compat alias: JoinSpec always matched the IR's join
+# shape field-for-field, so the shim IS LogicalJoin.  New code should
+# spell it ``LogicalJoin`` (engine/logical.py) or -- better -- use the
+# fluent ``db.query(...).join(...)`` builder (engine/builder.py).
+JoinSpec = LogicalJoin
+
 _PACK_LIMIT = 1 << 31   # packed keys live in device int32
 _RLE_CALL_ROWS = 1 << 31   # rows one rle_grouped_agg call may count
+
+_shim_warned = False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Query:
+    """DEPRECATED pre-IR front-end (single join, single group-by column),
+    frozen at its first feature set.  Kept only as a thin shim for old
+    call sites: ``to_ir()`` lowers to the ``LogicalQuery`` consumed
+    everywhere, and ``execute``/``plan_query`` accept it transparently
+    (emitting one ``DeprecationWarning`` per process).  New code should
+    use the fluent builder -- ``db.query("t").where(...).join(...)
+    .group_by(...).agg(...).collect()`` (engine/builder.py) -- or build
+    ``LogicalQuery`` directly; both support multi-join, multi-column
+    GROUP BY, derived columns, HAVING and multi-key ORDER BY, which this
+    shim never will."""
+    table: str
+    columns: Tuple[str, ...] = ()
+    predicate: Optional[Expr] = None
+    join: Optional[LogicalJoin] = None
+    group_by: Optional[str] = None
+    aggs: Tuple[Tuple[str, str, str], ...] = ()   # (out, col, kind)
+    order_by: Optional[str] = None
+    descending: bool = False
+    limit: Optional[int] = None
+
+    def to_ir(self) -> LogicalQuery:
+        global _shim_warned
+        if not _shim_warned:
+            _shim_warned = True
+            import warnings
+            warnings.warn(
+                "repro_torch.engine.Query is a deprecated shim; use "
+                "db.query(...) (engine/builder.py) or LogicalQuery",
+                DeprecationWarning, stacklevel=2)
+        return LogicalQuery(
+            table=self.table, columns=tuple(self.columns),
+            predicate=self.predicate,
+            joins=(self.join,) if self.join is not None else (),
+            group_by=(self.group_by,) if self.group_by else (),
+            aggs=tuple(self.aggs),
+            order_by=((self.order_by, self.descending),)
+            if self.order_by else (),
+            limit=self.limit).validate()
+
+    def needed_columns(self) -> set:
+        return self.to_ir().needed_columns()
 
 
 @dataclasses.dataclass
@@ -62,10 +120,21 @@ class ExecStats:
     # compressed-domain execution telemetry (engine/compressed.py)
     compressed_scan: bool = False   # code-domain scan + late materialization
     rows_materialized: int = 0      # survivor rows actually decoded
+    # per-stage wall times of the segmented path (engine/segmented.py):
+    # slab_build / exchange_join / preagg / final_merge, in milliseconds
+    stage_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # segmented-execution telemetry (engine/segmented.py)
+    segmented: bool = False
+    n_shards: int = 0
+    exchange: str = ""              # ";"-joined per-join exchange ops
+    reseg_overflow: int = 0         # tuples that hit a full exchange slot
+    seg_slab: str = ""              # ROS slab "hit"/"miss", "+wos" when a
+    #                                 trickle-load delta slab was appended
     snapshot_epoch: int = 0         # pinned cluster snapshot this query read
     # fault/failover telemetry (core/faults.py): failovers = mid-query
     # node crashes absorbed by replanning onto buddies at the pinned
-    # epoch; injected = fault actions fired while this query ran
+    # epoch; fault_retries = transient-fault attempt retries; injected =
+    # fault actions fired while this query ran
     failovers: int = 0
     fault_retries: int = 0
     faults_injected: int = 0
@@ -76,17 +145,26 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def execute(db: VerticaDB, q, *, as_of: Optional[int] = None, plan=None
+def execute(db: VerticaDB, q, *, as_of: Optional[int] = None, plan=None,
+            mesh=None, mesh_axis: str = "data"
             ) -> Tuple[Dict[str, np.ndarray], ExecStats]:
-    """Run a logical plan (LogicalQuery, node tree or builder).  ``plan``
-    (from planner.plan_query) may be supplied; otherwise the planner is
-    invoked."""
+    """Run a logical plan (LogicalQuery, node tree, builder, or the legacy
+    Query shim).  ``plan`` (from planner.plan_query) may be supplied;
+    otherwise the planner is invoked.
+
+    When a ``mesh`` is passed -- or the database has one attached
+    (``db.attach_mesh()``) -- aggregate queries route through the
+    segmented executor (engine/segmented.py) and fall back here for
+    shapes outside its subset."""
     from ..planner.planner import plan_query
 
     t0 = time.time()
     q = as_ir(q)
     if plan is None:
         plan = plan_query(db, q)
+    if mesh is None:
+        mesh = getattr(db, "mesh", None)
+        mesh_axis = getattr(db, "mesh_axis", mesh_axis)
     frontend_s = time.time() - t0
     from ..core.database import QueryRejectedError
     from ..core.faults import NodeCrashError, TransientFaultError
@@ -121,7 +199,8 @@ def execute(db: VerticaDB, q, *, as_of: Optional[int] = None, plan=None
         retries_left = int(getattr(db, "max_failover_retries", 2))
         while True:
             try:
-                return _execute_attempt(db, q, plan, as_of, stats, _finish)
+                return _execute_attempt(db, q, plan, as_of, mesh,
+                                        mesh_axis, stats, _finish)
             except NodeCrashError as e:
                 # mid-query node failure: bounded query-level failover.
                 # Replan at the SAME pinned epoch -- the planner routes
@@ -148,9 +227,17 @@ def execute(db: VerticaDB, q, *, as_of: Optional[int] = None, plan=None
 
 
 def _execute_attempt(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
-                     stats: ExecStats, _finish):
+                     mesh, mesh_axis: str, stats: ExecStats, _finish):
     """One execution attempt of a pinned-epoch query (the body of
     ``execute``'s failover retry loop)."""
+    # --- segmented path (explicit opt-in via mesh) ---
+    if mesh is not None:
+        from . import segmented
+        res = segmented.execute_segmented(db, q, plan, as_of, mesh,
+                                          mesh_axis, stats)
+        if res is not None:
+            return _finish(res)
+
     # --- scalar COUNT directly on RLE runs (predicate on sort leader) ---
     if plan.scalar_rle:
         res = _rle_scalar_count(db, q, plan, as_of)

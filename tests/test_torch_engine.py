@@ -269,10 +269,19 @@ def test_state_of_is_plain_python_and_numpy():
 
 
 def test_port_only_entry_points_raise_until_ported():
+    # serve() waits for the serving slice; attach_mesh() and rejoin_node()
+    # are ported (tests/test_torch_segmented.py, test_torch_recovery.py)
     db = _load(port_core, 0, device="cpu")
-    for call in (db.serve, db.attach_mesh, lambda: db.rejoin_node(0)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        db.serve()
+    mesh = db.attach_mesh()
+    assert db.mesh is mesh and mesh.n_shards == 1
+    assert mesh.device.type == "cpu"
+    db.detach_mesh()
+    assert db.mesh is None
+    db.fail_node(0)
+    db.rejoin_node(0)
+    assert db.nodes[0].up and db.nodes[0].recovering
     assert db.epochs.n_pinned() == 0
 
 
