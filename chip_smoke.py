@@ -38,8 +38,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    launches as bitunpack/seg_preagg/rle_grouped_agg, cold and warm), and
    Q4 launches rle_grouped_agg exactly once cold and once warm.
    seg_preagg is then held against its plain version on the very inputs
-   the main path gave it, once per shape (query, rows, domain): ints
-   exact, f32 sums within rtol 1e-5 (atomics reorder the sums).  Then
+   the main path gave it, once per shape (query, rows, domain): ints,
+   counts and min/max exact, f32 sums and avgs within rtol 1e-5 of the
+   float64 sums (atomics reorder the sums; the row gives the plain
+   version's gap to them too).  Then
    one more warm run of each query under torch.profiler gives its
    device time (device kernels only) and busy share;
 5. the kernel entry point ``repro_torch.kernels.ops`` at full size on
@@ -80,8 +82,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    and read just after), then ``bitunpack_segments`` over the l_qty codes
    of all 12 containers in one launch, timed;
 7. a trickle load of 10,000 rows into the WOS: Q3 and Q5 take the
-   general path, then again after ``run_tuple_mover(force_moveout=True)``,
-   all against the oracle;
+   general path, and served through ``db.serve()`` with two corpus
+   shapes (one shared scan, the WOS rows on its general path) equal
+   their solo runs; then again after
+   ``run_tuple_mover(force_moveout=True)``, all against the oracle;
 8. the LM serving path (the database is freed first): the bf16 flash
    kernels' machine code must hold warpgroup MMAs (``[sass]`` lines:
    HGMMA counted by ``cuobjdump``); then qwen3-4b at its
@@ -128,6 +132,25 @@ Phases, one line each (any failure raises and the script exits non-zero):
    of the first projection it proposes, and the query the planner routes
    to it against the oracle (``[design]``).  ``[step]`` lines give each
    step's seconds.
+10. serving (``serving_phase``; it runs after phase 5 and before phase
+   6) through ``db.serve()`` on the main database with a fresh 4 GiB
+   block cache: tests/test_serving.py's corpus re-keyed onto lineitem
+   plus Q1-Q7 and Qorders (two shared scans of 8), then Q1-Q7 and
+   Qorders solo twice, then benchmarks/serving.py's closed loop (12
+   clients x 12 ops of its re-keyed mix) and its interactive probe
+   under a bounded batch flood.  The launch counters are zeroed before
+   and read after (``[launches] path=serving``: all three query kernels
+   must launch); every served ticket must equal its solo run (ints
+   exact, floats rtol 1e-5) and its float64 numpy oracle (phase 4's, or
+   ``corpus_oracle`` for the corpus shapes), leave no pin, and each
+   drained flight cost one copy.  ``[serving]`` lines: latency
+   percentiles, qps beside the same ops run serially, shared-scan hit
+   rate, peak reservation, a profiled round's busy share, the flood
+   ratio; ``[overlap]`` lines: how often ``_Flight.ready()`` found a
+   flight unready and the synchronising calls inside dispatch under
+   ``torch.cuda.set_sync_debug_mode("warn")``, by source line.
+   seg_preagg is held as in phase 4 on the shared members' inputs (JSON
+   rows named ``serve-..``).
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
@@ -142,8 +165,8 @@ flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
 ``bound_share``, the bound over ``kernel_device_ms``; ``launches``:
 the run of the kernel's path -- the main path, phase 6 for the
 whole-scan bitunpack row, phase 5 for the four kernels only ``ops``
-reaches, phase 9's SF1 runs for the ``seg-`` seg_preagg rows, or phase
-8's prefill shape), and
+reaches, phase 9's SF1 runs for the ``seg-`` seg_preagg rows, phase 10
+for the ``serve-`` rows, or phase 8's prefill shape), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
@@ -155,6 +178,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -891,12 +915,43 @@ def _seg_bound_bytes(valid, n_cols: int, domain: int, n_out: int) -> int:
     return valid.numel() + sectors * 32 * (1 + n_cols) + domain * 4 * n_out
 
 
+def _f64_agg(keys, valid, x, domain: int, kind: str):
+    """The exact (float64) per-key sum, or mean, of f32 values: what an
+    f32 sum approximates, whatever order it adds in."""
+    import torch
+    k = keys.to(torch.int64).clamp(0, domain - 1)
+    f64 = torch.float64
+    s = torch.zeros(domain, dtype=f64, device=x.device).index_add_(
+        0, k, torch.where(valid, x.to(torch.float32).to(f64), 0))
+    if kind == "avg":
+        n = torch.zeros(domain, dtype=f64, device=x.device).index_add_(
+            0, k, valid.to(f64))
+        s = s / n.clamp(min=1)
+    return s
+
+
+def _rel_gap(got, exact) -> float:
+    """The largest relative gap of ``got`` to the float64 ``exact``
+    (0 where both are 0)."""
+    d = (got.double() - exact).abs()
+    return float((d / exact.abs().clamp(min=1e-300)).max()) \
+        if d.numel() else 0.0
+
+
 def seg_preagg_rows(capture, launched: int, device):
     """``seg_preagg`` against its plain version on the card, once per shape
     the main path gave it and on the inputs it gave: the query's own
     aggregates plus count, sum, min and max of an int32 column (full range,
-    so sums wrap) and an f32 column of the same rows -- ints and min/max
-    exact, f32 sums and avgs within rtol 1e-5 (atomics reorder the sums).
+    so sums wrap) and an f32 column of the same rows.  Counts, int sums
+    (and avgs of them) and min/max must equal the plain version's.  An
+    f32 sum or avg is held within rtol 1e-5 of the exact (float64) sum,
+    or mean, of the same f32 values: atomics reorder the kernel's sums,
+    and the plain version's ``index_add_`` is no exact judge either -- it
+    adds a key's rows one at a time, and over millions of rows a key (a
+    served aggregate over the unpruned scan) it drifts further from the
+    exact sum than the kernel does.  The row gives both sides' largest
+    relative gap to the float64 sum (``f64_rel_err``,
+    ``plain_f64_rel_err``).
     One JSON row per shape, timed on the query's own aggregates, with the
     launches of that shape in the main-path run."""
     import torch
@@ -924,16 +979,24 @@ def seg_preagg_rows(capture, launched: int, device):
         got = ops.seg_preagg(keys, valid, vals, domain, every)
         want = ops.seg_preagg_plain(keys, valid, vals, domain, every)
         kinds = {name: kind for name, _, kind in every}
-        err = 0.0
+        cols_of = {name: c for name, c, _ in every}
+        err = gap = plain_gap = 0.0
         for name, w in want.items():
             g = got[name]
-            if g.dtype == torch.int32 or kinds.get(name) in ("min", "max"):
+            kind = kinds.get(name)
+            if kind not in ("sum", "avg") or \
+                    not vals[cols_of[name]].is_floating_point():
                 if not torch.equal(g, w):
                     raise AssertionError(f"seg_preagg {query} {name}")
-            else:
-                if not torch.allclose(g, w, rtol=1e-5, atol=0):
-                    raise AssertionError(f"seg_preagg {query} {name}")
-                err = max(err, float((g - w).abs().max()))
+                continue
+            exact = _f64_agg(keys, valid, vals[cols_of[name]], domain, kind)
+            if not torch.allclose(g.double(), exact, rtol=1e-5, atol=0):
+                raise AssertionError(
+                    f"seg_preagg {query} {name}: rel err "
+                    f"{_rel_gap(g, exact):.3g} to the float64 sum")
+            gap = max(gap, _rel_gap(g, exact))
+            plain_gap = max(plain_gap, _rel_gap(w, exact))
+            err = max(err, float((g - w).abs().max()))
         cols = {c for _, c, kind in aggs if kind != "count"}
         n_out = 1 + sum(kind != "count" for _, _, kind in aggs)
         kidx = keys.to(torch.int64).clamp(0, domain - 1)
@@ -962,6 +1025,7 @@ def seg_preagg_rows(capture, launched: int, device):
             "kernel_device_ms": _kernel_device_ms(call, "seg_preagg"),
             "fold_device_ms": _kernel_device_ms(call, "seg_preagg",
                                                 exclude="init"),
+            "f64_rel_err": gap, "plain_f64_rel_err": plain_gap,
             "shape": f"{query}: n={n} domain={domain} valid="
                      f"{int(valid.sum())} aggs="
                      + "+".join(kind for _, _, kind in aggs)
@@ -970,6 +1034,7 @@ def seg_preagg_rows(capture, launched: int, device):
         _say("kernel", name="seg_preagg", query=query, n=n, domain=domain,
              valid=int(valid.sum()), route=route, launches=count,
              ints_exact=True, f32_sum_max_abs_err=f"{err:.3g}",
+             f64_rel_err=f"{gap:.3g}", plain_f64_rel_err=f"{plain_gap:.3g}",
              ms=f"{row['ms']:.4f}",
              kernel_device_ms=_fmt(row["kernel_device_ms"]),
              fold_device_ms=_fmt(row["fold_device_ms"]),
@@ -1354,9 +1419,10 @@ def profile_queries(db, warm) -> None:
 
 
 def run_trickle(db, fact, dim, device) -> dict:
-    """Phase 7: pending WOS rows force the general path, then the tuple
-    mover drains them and the fused path returns.  Returns the lineitem
-    rows the database holds after it."""
+    """Phase 7: pending WOS rows force the general path (and, served
+    through ``db.serve()``, the shared scan's general path), then the
+    tuple mover drains them and the fused path returns.  Returns the
+    lineitem rows the database holds after it."""
     from repro_torch.data import star_schema
     more, _ = star_schema(N_TRICKLE, N_DIM, seed=1)
     t = db.begin()
@@ -1367,8 +1433,9 @@ def run_trickle(db, fact, dim, device) -> dict:
         if stage == "moved":
             db.run_tuple_mover(force_moveout=True)
         queries = make_queries(db)
+        solo = {}
         for name in ("Q3", "Q5"):
-            res = queries[name].collect()
+            res = solo[name] = queries[name].collect()
             check(name, res, both, dim)
             st = queries[name].stats
             if st.fused != (stage == "moved"):
@@ -1376,7 +1443,604 @@ def run_trickle(db, fact, dim, device) -> dict:
                                      f"{st.fused}")
             _say("trickle", stage=stage, name=name, fused=st.fused,
                  route=st.groupby_algorithm, oracle="match")
+        if stage == "wos":
+            serve_wos_round(db, solo)
     return both
+
+
+# ------------------------------------------------------------ serving path --
+
+SERVE_CACHE = 4 << 30              # phase 10's fresh block cache
+LOOP_CLIENTS, LOOP_OPS = 12, 12    # benchmarks/serving.py's closed loop
+FLOOD_N, N_PROBE = 48, 24          # its batch flood and interactive probes
+N_SUPP = 64                        # benchmarks/serving.py's N_CIDS
+
+
+def serve_corpus(db):
+    """tests/test_serving.py::corpus re-keyed onto lineitem: l_suppkey for
+    cid, l_shipdate for day, l_qty for qty, l_extprice for price,
+    l_orderkey for sale_id."""
+    from repro_torch.engine import col
+    li = lambda: db.query("lineitem")
+    return {
+        "c-by-supp": li().group_by("l_suppkey").agg(n=("*", "count")),
+        "c-day180": li().where(col("l_shipdate") < 180)
+                        .group_by("l_suppkey")
+                        .agg(rev=("l_extprice", "sum"), n=("*", "count")),
+        "c-supp-range": li().where((col("l_suppkey") >= 10)
+                                   & (col("l_suppkey") < 40))
+                            .group_by("l_shipdate")
+                            .agg(mx=("l_extprice", "max")),
+        "c-total": li().agg(total=("l_qty", "sum")),
+        "c-qty5": li().where(col("l_qty") > 5)
+                      .agg(n=("*", "count"), lo=("l_extprice", "min")),
+        "c-composite": li().group_by("l_suppkey", "l_qty")
+                           .agg(s=("l_extprice", "sum")),
+        "c-having": li().where(col("l_shipdate") >= 300)
+                        .group_by("l_suppkey")
+                        .agg(avg_p=("l_extprice", "avg"))
+                        .having(col("avg_p") > 40).order_by("-avg_p")
+                        .limit(7),
+        "c-derived": li().select(margin=col("l_extprice") * col("l_qty"))
+                         .group_by("l_suppkey").agg(m=("margin", "sum")),
+        "c-select": li().where(col("l_shipdate") == 33)
+                        .select("l_orderkey", "l_suppkey", "l_extprice"),
+        "c-supp7": li().where(col("l_suppkey") == 7).group_by("l_shipdate")
+                       .agg(n=("*", "count")).order_by("l_shipdate"),
+        "c-empty-group": li().where(col("l_shipdate") > 9000)
+                             .group_by("l_suppkey")
+                             .agg(s=("l_extprice", "sum")),
+        "c-empty-min": li().where(col("l_shipdate") > 9000)
+                           .agg(lo=("l_extprice", "min")),
+    }
+
+
+def corpus_oracle(name, fact):
+    """Independent float64 numpy answer of a ``serve_corpus`` shape, over
+    the values the database holds (prices as f32): ({column: values},
+    key columns to sort both sides by, or () when the query's own ORDER
+    BY fixes the order).  A pruned-to-empty scalar aggregate is one row
+    of zeros, the engine's empty result."""
+    f = fact
+    sd, sk, qty = f["l_shipdate"], f["l_suppkey"], f["l_qty"]
+    price = f["l_extprice"].astype(np.float32).astype(np.float64)
+
+    def grouped(m, key, /, **aggs):
+        keys, inv = np.unique(key[m], return_inverse=True)
+        out = {}
+        for col, (kind, v) in aggs.items():
+            if kind == "count":
+                out[col] = np.bincount(inv, minlength=keys.size)
+            elif kind == "sum":
+                out[col] = np.bincount(inv, v[m], minlength=keys.size)
+            else:   # max
+                mx = np.full(keys.size, -np.inf)
+                np.maximum.at(mx, inv, v[m])
+                out[col] = mx
+        return keys, out
+
+    if name == "c-by-supp":
+        keys, out = grouped(np.ones(sd.size, bool), sk, n=("count", None))
+        return {"l_suppkey": keys, **out}, ("l_suppkey",)
+    if name == "c-day180":
+        keys, out = grouped(sd < 180, sk, rev=("sum", price),
+                            n=("count", None))
+        return {"l_suppkey": keys, **out}, ("l_suppkey",)
+    if name == "c-supp-range":
+        keys, out = grouped((sk >= 10) & (sk < 40), sd, mx=("max", price))
+        return {"l_shipdate": keys, **out}, ("l_shipdate",)
+    if name == "c-total":
+        return {"total": np.array([qty.sum()])}, ()
+    if name == "c-qty5":
+        m = qty > 5
+        return {"n": np.array([m.sum()]),
+                "lo": np.array([price[m].min()])}, ()
+    if name == "c-composite":
+        keys, out = grouped(np.ones(sd.size, bool), sk * 64 + qty,
+                            s=("sum", price))
+        return {"l_suppkey": keys // 64, "l_qty": keys % 64, **out}, \
+            ("l_suppkey", "l_qty")
+    if name == "c-having":
+        keys, out = grouped(sd >= 300, sk, s=("sum", price),
+                            n=("count", None))
+        avg = out["s"] / out["n"]
+        keep = avg > 40
+        order = np.argsort(-avg[keep], kind="stable")
+        return {"l_suppkey": keys[keep][order],
+                "avg_p": avg[keep][order]}, ()
+    if name == "c-derived":
+        keys, out = grouped(np.ones(sd.size, bool), sk,
+                            m=("sum", price * qty))
+        return {"l_suppkey": keys, **out}, ("l_suppkey",)
+    if name == "c-select":
+        m = sd == 33
+        return {"l_orderkey": f["l_orderkey"][m], "l_suppkey": sk[m],
+                "l_extprice": price[m]}, \
+            ("l_orderkey", "l_suppkey", "l_extprice")
+    if name == "c-supp7":
+        keys, out = grouped(sk == 7, sd, n=("count", None))
+        return {"l_shipdate": keys, **out}, ()
+    if name == "c-empty-group":
+        keys, out = grouped(sd > 9000, sk, s=("sum", price))
+        return {"l_suppkey": keys, **out}, ("l_suppkey",)
+    if name == "c-empty-min":
+        m = sd > 9000
+        return {"lo": np.array([price[m].min() if m.any() else 0.0])}, ()
+    raise KeyError(name)
+
+
+def check_corpus(name, res, fact) -> None:
+    """A ``serve_corpus`` result against ``corpus_oracle``: the same rows
+    (sorted by the key columns, or in the query's order), ints exact,
+    floats within rtol 1e-4.  c-having's ORDER BY avg LIMIT 7 is held up
+    to near-ties: its keys' averages match the oracle's, run in
+    descending order, and are the oracle's top 7 within rtol 1e-4."""
+    want, keys = corpus_oracle(name, fact)
+    got = {c: np.asarray(res[c]) for c in want}
+    if name == "c-having":
+        w = dict(zip(want["l_suppkey"].tolist(), want["avg_p"]))
+        k, a = got["l_suppkey"].tolist(), got["avg_p"].astype(np.float64)
+        top = want["avg_p"][:7]
+        if len(k) != top.size or len(set(k)) != len(k) or \
+                any(x not in w for x in k):
+            raise AssertionError(f"{name}: keys {k} are not a top "
+                                 f"{top.size} of the oracle's")
+        ok = np.allclose(a, [w[x] for x in k], rtol=1e-4, atol=0) and \
+            np.all(np.diff(a) <= 0) and \
+            np.allclose(np.sort([w[x] for x in k])[::-1], top, rtol=1e-4,
+                        atol=0)
+        if not ok:
+            raise AssertionError(f"{name}: top {top.size} differ from the "
+                                 f"oracle's")
+        return
+    n = len(next(iter(want.values())))
+    for c, g in got.items():
+        if g.shape != (n,):
+            raise AssertionError(f"{name}.{c}: {g.shape[0] if g.ndim else g}"
+                                 f" rows, oracle {n}")
+    if keys:
+        og = np.lexsort([got[c].astype(np.float64) for c in keys[::-1]])
+        ow = np.lexsort([want[c].astype(np.float64) for c in keys[::-1]])
+        got = {c: v[og] for c, v in got.items()}
+        want = {c: v[ow] for c, v in want.items()}
+    for c, w in want.items():
+        g = got[c]
+        if g.dtype.kind in "iub" and w.dtype.kind in "iub":
+            if not np.array_equal(g.astype(np.int64), w.astype(np.int64)):
+                raise AssertionError(f"{name}.{c}: ints differ from the "
+                                     f"oracle")
+        elif not np.allclose(g.astype(np.float64), w, rtol=1e-4, atol=0):
+            err = np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))
+            raise AssertionError(f"{name}.{c}: rel err {err:.3g}")
+
+
+def serve_mix(db):
+    """benchmarks/serving.py::_mix re-keyed onto lineitem, as above."""
+    from repro_torch.engine import col
+    li = lambda: db.query("lineitem")
+    return [
+        li().group_by("l_suppkey").agg(n=("*", "count")),
+        li().group_by("l_suppkey").agg(rev=("l_extprice", "sum")),
+        li().where(col("l_qty") > 5).group_by("l_suppkey")
+            .agg(s=("l_extprice", "sum"), n=("*", "count")),
+        li().where(col("l_suppkey") < N_SUPP // 2).group_by("l_qty")
+            .agg(avg_p=("l_extprice", "avg")),
+        li().agg(total=("l_extprice", "sum"), n=("*", "count")),
+        li().where(col("l_qty") == 3).agg(n=("*", "count")),
+        li().group_by("l_qty").agg(mx=("l_extprice", "max"),
+                                   mn=("l_extprice", "min")),
+        li().select(margin=col("l_extprice") * col("l_qty"))
+            .group_by("l_suppkey").agg(m=("margin", "sum"))
+            .order_by("-m").limit(10),
+    ]
+
+
+def _served_equal(name, got, want) -> float:
+    """A served result against the same query's solo run: the same
+    columns and shapes, ints and counts equal, floats within rtol 1e-5
+    (``seg_preagg``'s atomics order f32 sums differently from run to
+    run).  One difference is the reference's own: a scalar query whose
+    solo route is the RLE count (Q1) carries ``group_count`` too when it
+    rides a shared scan (the fused shape keeps it), so that column may
+    be extra.  Returns the largest relative float difference."""
+    extra = set(got) - set(want)
+    if set(want) - set(got) or extra - {"group_count"} or (
+            extra and name != "Q1"):
+        raise AssertionError(f"{name}: served {sorted(got)} != "
+                             f"solo {sorted(want)}")
+    worst = 0.0
+    for c in want:
+        a, b = np.asarray(got[c]), np.asarray(want[c])
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}.{c}: shape {a.shape} != {b.shape}")
+        if a.dtype.kind in "iub" and b.dtype.kind in "iub":
+            if not np.array_equal(a.astype(np.int64), b.astype(np.int64)):
+                raise AssertionError(f"{name}.{c}: ints differ")
+            continue
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        if not np.allclose(a, b, rtol=1e-5, atol=0):
+            raise AssertionError(f"{name}.{c}: floats beyond rtol 1e-5")
+        if a.size:
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-30))))
+    return worst
+
+
+class ServeProbe:
+    """Instruments one serving run without touching the service: labels
+    ``seg_preagg``'s captured calls with the query a fused closure serves
+    (``serve-<name>`` for a shared member, ``solo-<name>`` for a solo
+    unit), counts how often ``_Flight.ready()`` found a flight still
+    computing, and counts the synchronising CUDA calls made inside
+    ``QueryService._dispatch`` under ``torch.cuda.set_sync_debug_mode
+    ("warn")``, by the source line that made them."""
+
+    def __init__(self, capture, names):
+        self.capture, self.names = capture, names
+        self.ready_probes = self.unready = 0
+        self.syncs = {}
+        self._saved = []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+        import torch
+        from repro_torch.engine import executor, serving
+        probe = self
+
+        def label(kind, real):
+            def wrapped(db, q, *args):
+                probe.capture.query = f"{kind}-" + probe.names.get(
+                    id(q), "other")
+                return real(db, q, *args)
+            return wrapped
+
+        def ready(fl, real=serving._Flight.ready):
+            r = real(fl)
+            probe.ready_probes += 1
+            probe.unready += not r
+            return r
+
+        src = os.path.join(REPO, "src") + os.sep
+
+        def on_warning(message, category, filename, lineno, *rest):
+            if "synchroniz" not in str(message):
+                return
+            # the innermost frame of the port: the line that asked for it
+            site = next((f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                         for f in reversed(traceback.extract_stack())
+                         if f.filename.startswith(src)),
+                        f"{filename}:{lineno}")
+            probe.syncs[site] = probe.syncs.get(site, 0) + 1
+
+        def dispatch(svc, unit, real=serving.QueryService._dispatch):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = on_warning
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return real(svc, unit)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+        for owner, attr, new in (
+                (executor, "execute_shared_fused_deferred",
+                 label("serve", executor.execute_shared_fused_deferred)),
+                (executor, "execute_fused_deferred",
+                 label("solo", executor.execute_fused_deferred)),
+                (serving._Flight, "ready", ready),
+                (serving.QueryService, "_dispatch", dispatch)):
+            self._saved.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, old in reversed(self._saved):
+            setattr(owner, attr, old)
+        self._saved = []
+
+    def take(self):
+        """(ready probes, unready answers, {sync site: calls}) since the
+        last take, and start counting afresh."""
+        out = (self.ready_probes, self.unready, self.syncs)
+        self.ready_probes = self.unready = 0
+        self.syncs = {}
+        return out
+
+
+def _serve_round(db, named, **kw):
+    """Submit ``named`` ({name: query}) to one service and drain it;
+    returns (service, {name: ticket})."""
+    svc = db.serve(**kw)
+    with svc.session("interactive") as s:
+        tickets = {name: s.submit(q) for name, q in named.items()}
+    svc.drain()
+    return svc, tickets
+
+
+def _check_round(db, label, svc, tickets, irs, fact, dim):
+    """Every ticket of a drained round against its query's solo run and
+    its float64 numpy oracle (phase 4's for the Q's, ``corpus_oracle``
+    for the corpus shapes); the service's counters.
+    Returns the worst float difference to the solo runs."""
+    from repro_torch.engine import execute
+    worst = 0.0
+    for name, t in tickets.items():
+        got = t.result()
+        want, _ = execute(db, irs[name], as_of=t.stats.snapshot_epoch)
+        worst = max(worst, _served_equal(name, got, want))
+        if name in KEY_COL:
+            check(name, got, fact, dim)
+        else:
+            check_corpus(name, got, fact)
+    st = svc.stats
+    if db.epochs.n_pinned() != 0:
+        raise AssertionError(f"serving {label} left an epoch pinned")
+    if st.device_transfers != st.drains:
+        raise AssertionError(f"serving {label}: {st.device_transfers} "
+                             f"copies for {st.drains} drains")
+    groups = sorted({t.stats.dispatch_seq: t.stats.share_group
+                     for t in tickets.values()}.items())
+    _say("serving", round=label, queries=len(tickets), solo="match",
+         oracle="match", max_float_rel_diff=f"{worst:.3g}",
+         shared_scans=st.shared_scans, deduped=st.deduped,
+         async_units=st.async_units, drains=st.drains,
+         device_transfers=st.device_transfers,
+         groups="+".join(str(g) for _, g in groups),
+         pinned=db.epochs.n_pinned())
+    return worst
+
+
+def _closed_loop(db, scripts):
+    """benchmarks/serving.py's closed loop: each client submits its next
+    op once its previous one settled.  Returns (latencies ms, seconds,
+    service).  A refused submit raises and fails the phase."""
+    svc = db.serve(queue_depth=LOOP_CLIENTS + 2, max_concurrent=4,
+                   max_coalesce=8, batch_boost_after=4)
+    sessions = [svc.session("interactive" if ci % 3 else "batch")
+                for ci in range(LOOP_CLIENTS)]
+    next_op = [0] * LOOP_CLIENTS
+    inflight, lat_ms = {}, []
+    t0 = time.perf_counter()
+    while True:
+        for ci, sess in enumerate(sessions):
+            if ci in inflight or next_op[ci] >= LOOP_OPS:
+                continue
+            inflight[ci] = sess.submit(scripts[ci][next_op[ci]])
+            next_op[ci] += 1
+        if not inflight:
+            if all(n >= LOOP_OPS for n in next_op):
+                break
+            continue
+        svc.step()
+        for ci in [c for c, t in inflight.items() if t.done]:
+            t = inflight.pop(ci)
+            if t.state != "done":
+                raise AssertionError(f"closed loop: {t.stats.rejected_reason}")
+            lat_ms.append(t.stats.total_s * 1e3)
+    seconds = time.perf_counter() - t0
+    if svc.stats.completed != LOOP_CLIENTS * LOOP_OPS:
+        raise AssertionError("closed loop: not every op completed")
+    return lat_ms, seconds, svc
+
+
+def _flood(db, mix, rng):
+    """benchmarks/serving.py's interactive isolation: the p99 of a fixed
+    interactive probe, unloaded, then between steps of a batch flood
+    held to two flights by the batch bulkhead."""
+    svc = db.serve(queue_depth=FLOOD_N + 8, max_concurrent=4,
+                   max_coalesce=8,
+                   max_in_flight={"interactive": 4, "batch": 2})
+    inter = svc.session("interactive")
+    probe = mix[0]
+
+    def timed():
+        t1 = time.perf_counter()
+        inter.submit(probe).result()
+        return (time.perf_counter() - t1) * 1e3
+
+    unloaded = [timed() for _ in range(N_PROBE)]
+    batch = svc.session("batch")
+    flood = [batch.submit(mix[int(rng.integers(0, len(mix)))])
+             for _ in range(FLOOD_N)]
+    flooded = []
+    for _ in range(N_PROBE):
+        svc.step()
+        svc.step()
+        flooded.append(timed())
+    svc.drain()
+    if not all(t.state == "done" for t in flood):
+        raise AssertionError("flood: a batch ticket did not complete")
+    peak = svc.stats.peak_in_flight.get("batch", 0)
+    if peak > 2:
+        raise AssertionError(f"flood: {peak} batch tickets in flight")
+    return (float(np.percentile(unloaded, 99)),
+            float(np.percentile(flooded, 99)), peak)
+
+
+def serving_phase(db, fact, dim, device):
+    """Phase 10: ``db.serve()`` over the main SF1 database on a fresh
+    block cache (the first union scans are cold).  (1) The differential
+    round: tests/test_serving.py's corpus re-keyed onto lineitem plus
+    Q1-Q7 and Qorders, served together at max_concurrent=2,
+    max_coalesce=8; then Q1-Q7 and Qorders twice more with coalescing off
+    (every unit solo: fused closures parked, the RLE routes synchronous;
+    the second run warm).
+    (2) benchmarks/serving.py's closed loop (12 clients x 12 ops of its
+    mix) and its interactive probe under a bounded batch flood.  The
+    launch counters are zeroed before (1) and read after (2); every
+    served ticket is then held against its query's solo run (ints exact,
+    floats rtol 1e-5) and its float64 numpy oracle, the closed
+    loop's schedules run serially through ``execute``, seg_preagg is held
+    against its plain version and the float64 sums on the shared
+    members' inputs (``serve-`` rows), and one served round of the mix is
+    profiled.  Returns the
+    ``serve-`` JSON rows."""
+    import torch
+    from repro_torch.core.block_cache import BlockCache
+    from repro_torch.engine import execute
+    from repro_torch.kernels import ops
+    t_step = time.perf_counter()
+    saved = db.block_cache
+    db.block_cache = BlockCache(SERVE_CACHE)
+    try:
+        corpus = {n: qb.to_ir() for n, qb in serve_corpus(db).items()}
+        qs = {n: qb.to_ir() for n, qb in make_queries(db).items()}
+        mix = [qb.to_ir() for qb in serve_mix(db)]
+        names = {id(q): n for n, q in list(corpus.items()) + list(qs.items())}
+        names.update({id(q): f"mix{i}" for i, q in enumerate(mix)})
+        rng = np.random.default_rng(42)
+        scripts = [[mix[i] for i in rng.integers(0, len(mix), LOOP_OPS)]
+                   for _ in range(LOOP_CLIENTS)]
+        with SegCapture() as capture, ServeProbe(capture, names) as probe:
+            ops.reset_launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            svc_a, tk_a = _serve_round(db, {**corpus, **qs},
+                                       max_concurrent=2, max_coalesce=8,
+                                       queue_depth=64)
+            _sync(device)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            seen = {"mix": probe.take()}
+            svc_b, tk_b = _serve_round(db, qs, max_concurrent=2,
+                                       max_coalesce=1, queue_depth=64)
+            seen["solo"] = probe.take()
+            svc_w, tk_w = _serve_round(db, qs, max_concurrent=2,
+                                       max_coalesce=1, queue_depth=64)
+            seen["solo_warm"] = probe.take()
+            # warm the shared closures outside the timed loop, as the
+            # benchmark does
+            _serve_round(db, {f"mix{i}": q for i, q in enumerate(mix)},
+                         queue_depth=len(mix) + 1, max_coalesce=len(mix))
+            probe.take()
+            lat_ms, loop_s, svc_c = _closed_loop(db, scripts)
+            seen["closed_loop"] = probe.take()
+            p99_unloaded, p99_flood, flood_peak = _flood(db, mix, rng)
+            seen["flood"] = probe.take()
+            _sync(device)
+            launches = ops.launch_counts()
+        _say("launches", path="serving",
+             **{k: launches[k] for k in MAIN_KERNELS})
+        missing = [k for k in MAIN_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"serving path never launched: {missing}")
+
+        # ---- what the run served, held against solo runs and oracles ----
+        irs = {**corpus, **qs}
+        _check_round(db, "mix", svc_a, tk_a, irs, fact, dim)
+        if svc_a.stats.shared_scans == 0:
+            raise AssertionError("serving: no shared scan in the mix round")
+        _check_round(db, "solo", svc_b, tk_b, irs, fact, dim)
+        _check_round(db, "solo_warm", svc_w, tk_w, irs, fact, dim)
+        _say("serving", round="mix", cold_ms=f"{cold_ms:.3f}")
+        for label, (probes, unready, syncs) in seen.items():
+            _say("overlap", round=label, ready_probes=probes,
+                 unready=unready, dispatch_syncs=sum(syncs.values()),
+                 sync_sites=json.dumps(syncs, separators=(",", ":")))
+
+        # ---- the closed loop's schedules, one at a time ----
+        for q in mix:
+            execute(db, q)
+        _sync(device)
+        t0 = time.perf_counter()
+        serial_ms = []
+        for rnd in range(LOOP_OPS):
+            for ci in range(LOOP_CLIENTS):
+                t1 = time.perf_counter()
+                execute(db, scripts[ci][rnd])
+                serial_ms.append((time.perf_counter() - t1) * 1e3)
+        serial_s = time.perf_counter() - t0
+        st = svc_c.stats
+        n_ok = len(lat_ms)
+        p50, p95, p99 = (float(np.percentile(lat_ms, p))
+                         for p in (50, 95, 99))
+
+        # ---- one served round of the mix, profiled ----
+        def mix_round():
+            _serve_round(db, {f"mix{i}": q for i, q in enumerate(mix)},
+                         queue_depth=len(mix) + 1, max_coalesce=len(mix))
+        round_ms = _host_ms(mix_round, reps=5)
+        dev_ms, by_name = _profile(mix_round, kernels_only=True)
+        busy = "not measured" if dev_ms is None \
+            else f"{dev_ms / round_ms:.4f}"
+        _say("serving", round="closed_loop", clients=LOOP_CLIENTS,
+             ops=LOOP_CLIENTS * LOOP_OPS, completed=n_ok,
+             p50_ms=f"{p50:.3f}", p95_ms=f"{p95:.3f}", p99_ms=f"{p99:.3f}",
+             qps=f"{n_ok / loop_s:.2f}",
+             serial_qps=f"{len(serial_ms) / serial_s:.2f}",
+             serial_p50_ms=f"{float(np.percentile(serial_ms, 50)):.3f}",
+             serial_p99_ms=f"{float(np.percentile(serial_ms, 99)):.3f}",
+             speedup_vs_serial=f"{serial_s / loop_s:.3f}",
+             shared_scan_hit_rate=f"{st.shared_hit_rate():.3f}",
+             shared_scans=st.shared_scans, coalesced_max=st.coalesced_max,
+             deduped=st.deduped, async_units=st.async_units,
+             drains=st.drains, device_transfers=st.device_transfers,
+             peak_reserved_mb=f"{db.block_cache.stats.peak_reserved_bytes / 2**20:.1f}")
+        _say("serving", round="profiled_mix", host_ms=f"{round_ms:.3f}",
+             device_ms=_fmt(dev_ms), busy_share=busy,
+             top_kernel=(max(by_name, key=by_name.get).replace(" ", "_")[:60]
+                         if by_name else "none"))
+        _say("serving", round="flood", probes=N_PROBE, flood=FLOOD_N,
+             p99_unloaded_ms=f"{p99_unloaded:.3f}",
+             p99_flood_ms=f"{p99_flood:.3f}",
+             p99_flood_ratio=f"{p99_flood / p99_unloaded:.3f}",
+             batch_peak_in_flight=flood_peak)
+        if st.device_transfers != st.drains or db.epochs.n_pinned():
+            raise AssertionError("closed loop: copies != drains or a pin "
+                                 "left")
+        if st.shared_scans == 0 or st.async_units == 0:
+            raise AssertionError("closed loop: nothing shared or parked")
+
+        # ---- seg_preagg on the shared members' inputs: one row per
+        # (rows, domain, aggregates), named by the first query to give it
+        served = {}
+        for (label, n, domain, aggs), (count, inputs) in \
+                capture.shapes.items():
+            if not label.startswith("serve-"):
+                continue
+            key = next((k for k in served if k[1:] == (n, domain, aggs)),
+                       (label, n, domain, aggs))
+            entry = served.setdefault(key, [0, inputs])
+            entry[0] += count
+        rows = seg_preagg_rows(types.SimpleNamespace(shapes=served),
+                               sum(c for c, _ in served.values()), device)
+        if not rows:
+            raise AssertionError("serving: no shared member launched "
+                                 "seg_preagg")
+    finally:
+        db.block_cache = saved
+    torch.cuda.synchronize()
+    _say("step", path="serving", seconds=f"{time.perf_counter() - t_step:.1f}")
+    return rows
+
+
+def serve_wos_round(db, solo) -> None:
+    """Phase 7's serving round while the trickled rows are still in the
+    WOS: Q3, Q5 and two corpus shapes served together, each equal to its
+    solo run (Q3 and the corpus shapes share one scan, the WOS rows on
+    the general path; Q5, a join, runs solo)."""
+    from repro_torch.engine import execute
+    corpus = serve_corpus(db)
+    qs = make_queries(db)
+    named = {"Q3": qs["Q3"].to_ir(), "Q5": qs["Q5"].to_ir(),
+             "c-day180": corpus["c-day180"].to_ir(),
+             "c-composite": corpus["c-composite"].to_ir()}
+    svc, tickets = _serve_round(db, named, max_concurrent=2,
+                                max_coalesce=8, queue_depth=16)
+    for name, t in tickets.items():
+        got = t.result()
+        want = solo[name] if name in solo else execute(
+            db, named[name], as_of=t.stats.snapshot_epoch)[0]
+        _served_equal(name, got, want)
+        if t.stats.exec_stats is not None and t.stats.exec_stats.fused:
+            raise AssertionError(f"{name}: fused with WOS rows pending")
+    if db.epochs.n_pinned() or svc.stats.device_transfers != \
+            svc.stats.drains or svc.stats.shared_scans == 0:
+        raise AssertionError(f"serving with WOS: {svc.stats}")
+    _say("trickle", stage="wos", served=",".join(tickets), solo="match",
+         shared_scans=svc.stats.shared_scans,
+         groups="+".join(str(t.stats.share_group)
+                         for t in tickets.values()))
 
 
 # ------------------------------------------------------- compressed path --
@@ -2428,6 +3092,7 @@ def main() -> int:
                  index_add_ms=f"{seg['library_ms']:.4f}")
     rows += api_rows
 
+    rows += serving_phase(db, fact, dim, device)
     rows += compressed_phase(db, fact, dim, device)
     fact = run_trickle(db, fact, dim, device)
     rows += segmented_phase(db, fact, dim, device)

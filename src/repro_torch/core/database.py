@@ -18,8 +18,9 @@ transaction, distribution and availability semantics.
 Mirrors ``src/repro/core/database.py`` with these changes: the database
 holds the torch ``device`` its block cache and queries use (``"cuda"`` by
 default; asking for CUDA without a GPU raises), ``query()`` returns the
-port's QueryBuilder, and ``serve()`` raises NotImplementedError until the
-slice that brings it (ROADMAP.md queue 1 item 8).  ``attach_mesh()`` takes
+port's QueryBuilder, and ``serve()`` returns the port's QueryService
+(engine/serving.py), whose pipelined drain waits on CUDA events.
+``attach_mesh()`` takes
 a mesh of the port (distributed/mesh.py): logical shards on one device.
 """
 from __future__ import annotations
@@ -272,11 +273,22 @@ class VerticaDB:
         return QueryBuilder(self, table)
 
     def serve(self, **kw):
-        """Multi-tenant serving front door (admission control, priority
-        queues, shared scans): not ported yet."""
-        raise NotImplementedError(
-            "serve: the serving layer is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
+        """Multi-tenant serving front door (engine/serving.py; paper §7
+        workload management): admission control with interactive/batch
+        priority queues, a bounded session pool, a concurrent-working-set
+        memory budget charged against the block cache, and shared scans
+        that coalesce queued queries over one projection + snapshot epoch
+        into a single cache-resident scan.
+
+            svc = db.serve(queue_depth=16)
+            with svc.session("interactive") as s:
+                t = s.submit(db.query("sales").group_by("cid")
+                             .agg(n=("*", "count")))
+            svc.drain()
+            rows = t.result()
+        """
+        from ..engine.serving import QueryService
+        return QueryService(self, **kw)
 
     # ------------------------------------------------------------- txn --
 

@@ -1,7 +1,6 @@
 """Execution engine on torch: the fluent builder, logical IR, operators,
-the cached fused executor, the single-node pipeline and the segmented
-executor.  Mirrors ``src/repro/engine/__init__.py``, less the serving
-layer (not ported yet)."""
+the cached fused executor, the single-node pipeline, the segmented
+executor and the serving layer.  Mirrors ``src/repro/engine/__init__.py``."""
 from .builder import QueryBuilder
 from .executor import PLAN_CACHE, PlanCache
 from .expr import Col, Expr, Lit, col, lit
@@ -9,9 +8,12 @@ from .logical import (Aggregate, Filter, Join, Limit, LogicalJoin,
                       LogicalQuery, Project, Scan, Sort, as_ir, lower)
 from .pipeline import ExecStats, JoinSpec, Query, execute
 from .segmented import execute_segmented
+from .serving import (QueryService, ServiceStats, ServingStats, Session,
+                      Ticket)
 
 __all__ = ["Aggregate", "Col", "ExecStats", "Expr", "Filter", "Join",
            "JoinSpec", "Limit", "Lit", "LogicalJoin", "LogicalQuery",
            "PLAN_CACHE", "PlanCache", "Project", "Query", "QueryBuilder",
-           "Scan", "Sort", "as_ir", "col", "execute", "execute_segmented",
-           "lit", "lower"]
+           "QueryService", "Scan", "ServiceStats", "ServingStats",
+           "Session", "Sort", "Ticket", "as_ir", "col", "execute",
+           "execute_segmented", "lit", "lower"]

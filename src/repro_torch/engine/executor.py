@@ -22,8 +22,14 @@ Mirrors ``src/repro/engine/executor.py`` for single-node execution:
 Every tensor lives on ``db.device``.  An eligible scan may run in the
 code domain instead (engine/compressed.py, picked by ``db.exec_mode``).
 The snapshot scans at the end of the scan section feed the segmented
-executor (engine/segmented.py).  The deferred/shared serving variants are
-not ported yet.
+executor (engine/segmented.py).
+
+The serving layer (engine/serving.py) uses the deferred entry points:
+``execute_fused_deferred`` and ``execute_shared_fused_deferred`` launch
+a query's closure and return ``(device_result, finish)`` without waiting
+for the device, and ``to_host`` later fetches a whole flight of such
+results in one device->host copy.  ``execute_fused`` and
+``execute_shared_fused`` are their synchronous wrappers.
 """
 from __future__ import annotations
 
@@ -197,6 +203,18 @@ def as_mask(x, like: torch.Tensor) -> torch.Tensor:
 # Batched scan over all containers of a plan
 # ---------------------------------------------------------------------------
 
+def _upload_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index array on ``device`` without waiting for the device: a
+    CUDA upload stages through pinned memory and copies asynchronously
+    on the current stream (the caching host allocator keeps the staging
+    buffer until the copy has run), so a scan's launches queue behind
+    it instead of the host synchronising per container."""
+    t = torch.from_numpy(idx)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def scan_stores_batched(db: VerticaDB, plan, need: Sequence[str],
                         predicate: Optional[Expr], sip, as_of: int,
                         stats) -> Optional[ops.ScanResult]:
@@ -229,8 +247,7 @@ def scan_stores_batched(db: VerticaDB, plan, need: Sequence[str],
                 continue
             stats.containers_scanned += 1
             whole = kept_idx.size == nb
-            idx = None if whole else torch.as_tensor(kept_idx,
-                                                     device=db.device)
+            idx = None if whole else _upload_index(kept_idx, db.device)
             for name in need:
                 blocks = cached_decoded(db, c, name)
                 col_parts[name].append(blocks if whole else blocks[idx])
@@ -530,33 +547,82 @@ def _shape_fused_result(q, res, algo: str, domain: int,
     return out
 
 
-def to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Fetch a dict of device tensors in ONE device->host copy: the
-    tensors' bytes are concatenated on the device, copied once, and split
-    back into numpy arrays of their own dtype and shape."""
-    names = list(res)
-    ts = [res[n].contiguous() for n in names]
-    if not ts or ts[0].device.type == "cpu":
-        return {n: t.numpy() for n, t in zip(names, ts)}
-    buf = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts]) \
-        .cpu().numpy()
-    out, off = {}, 0
-    for n, t in zip(names, ts):
-        nbytes = t.numel() * t.element_size()
-        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        # copy: a slice at an odd offset would be an unaligned view
-        out[n] = buf[off:off + nbytes].view(dt).reshape(t.shape).copy()
-        off += nbytes
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a dict, or of a flight's entries, in order."""
+    if isinstance(tree, dict):
+        return list(tree.values())
+    out: List[torch.Tensor] = []
+    for entry in tree:
+        if entry is None:
+            continue
+        if isinstance(entry, tuple):
+            mask, cols = entry
+            out.append(mask)
+            out.extend(cols.values())
+        else:
+            out.extend(entry.values())
     return out
 
 
-def execute_fused(db: VerticaDB, q, plan, as_of: int,
-                  stats) -> Optional[Dict[str, np.ndarray]]:
-    """Run an aggregate query as one cached fused closure and bring the
-    result back in one batched copy.  Returns None when the query shape
-    is outside the fused subset (WOS rows pending, no aggregation, or
-    composite keys without static SMA domains) or on sort-cap overflow
-    -- the caller falls back to the general pipeline."""
+def _rebuild(tree, arrays: List[np.ndarray]):
+    """``tree``'s structure with its tensors replaced, in order."""
+    it = iter(arrays)
+    if isinstance(tree, dict):
+        return {n: next(it) for n in tree}
+    out: list = []
+    for entry in tree:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, tuple):
+            mask = next(it)
+            out.append((mask, {n: next(it) for n in entry[1]}))
+        else:
+            out.append({n: next(it) for n in entry})
+    return out
+
+
+def to_host(tree):
+    """Fetch device tensors in ONE device->host copy: their bytes are
+    concatenated on the device, copied once, and split back into numpy
+    arrays of their own dtype and shape (a bool mask travels as its
+    uint8 bytes).  ``tree`` is a dict of tensors, or a flight: a list
+    whose entries are a dict of tensors, a ``(bool mask, dict)`` tuple
+    or None; the result has the same structure.  The copy runs on the
+    current stream, so it waits for every launch queued there before
+    it."""
+    ts = _leaves(tree)
+    if not ts or ts[0].device.type == "cpu":
+        return _rebuild(tree, [t.contiguous().numpy() for t in ts])
+    buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                     for t in ts]).cpu().numpy()
+    arrays, off = [], 0
+    for t in ts:
+        nbytes = t.numel() * t.element_size()
+        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        # copy: a slice at an odd offset would be an unaligned view
+        arrays.append(buf[off:off + nbytes].view(dt).reshape(t.shape)
+                      .copy())
+        off += nbytes
+    return _rebuild(tree, arrays)
+
+
+def execute_fused_deferred(db: VerticaDB, q, plan, as_of: int, stats
+                           ) -> Optional[Tuple[Dict[str, torch.Tensor],
+                                               Callable]]:
+    """The deferred twin of :func:`execute_fused`: launch the cached fused
+    closure and return ``(device_result, finish)`` without waiting for
+    the device, so the caller (the serving layer's pipelined dispatch,
+    engine/serving.py) can park the result and go on to the next query
+    while the card computes.  ``finish(host_result)`` shapes the arrays
+    that one batched copy (``to_host``) brought back, and returns None
+    on sort-cap overflow, when the caller falls back to the general
+    pipeline as ``execute`` would.  Returns None when the shape is
+    outside the fused subset (WOS rows pending, no aggregation, or
+    composite keys without static SMA domains) or fully pruned.
+
+    The launches themselves wait for nothing, but the scan may: a
+    compressed scan copies its per-block survivor counts to the host,
+    and a cold scan uploads and decodes blocks."""
     if _stores_have_wos(db, plan):
         return None   # WOS rows need the unencoded side-scan
     proj = db.catalog.projections[plan.projection]
@@ -605,6 +671,82 @@ def execute_fused(db: VerticaDB, q, plan, as_of: int,
                                   tuple(q.aggs)))
     stats.plan_cache = "hit" if hit else "miss"
     res = fused(scan.columns, scan.valid, tuple(builds))
-    out = _shape_fused_result(q, to_host(res), algo, domain, domains,
-                              stats, sigs=(sig,))
-    return cplan.translate(out) if cplan is not None else out
+
+    def finish(host_res) -> Optional[Dict[str, np.ndarray]]:
+        out = _shape_fused_result(q, host_res, algo, domain, domains,
+                                  stats, sigs=(sig,))
+        return cplan.translate(out) if cplan is not None else out
+
+    return res, finish
+
+
+def execute_fused(db: VerticaDB, q, plan, as_of: int,
+                  stats) -> Optional[Dict[str, np.ndarray]]:
+    """Run an aggregate query as one cached fused closure and bring the
+    result back in one batched copy: the synchronous wrapper around
+    :func:`execute_fused_deferred`.  Returns None when the query shape
+    is outside the fused subset or on sort-cap overflow -- the caller
+    falls back to the general pipeline."""
+    d = execute_fused_deferred(db, q, plan, as_of, stats)
+    if d is None:
+        return None
+    res, finish = d
+    return finish(to_host(res))
+
+
+def execute_shared_fused_deferred(db: VerticaDB, q, plan,
+                                  cols: Dict[str, torch.Tensor],
+                                  valid: torch.Tensor, stats
+                                  ) -> Optional[Tuple[Dict[str, torch.Tensor],
+                                                      Callable]]:
+    """The per-query mask->aggregate stage of a serving shared scan
+    (engine/serving.py), deferred: the group's ONE unpruned scan is
+    already on the device; this launches the query's own predicate and
+    GROUP BY over it as a plan-cached closure and returns
+    ``(device_result, finish)`` without waiting -- the drain stage
+    fetches every member of the group in one batched copy.  The
+    predicate is evaluated INSIDE the closure (a shared scan cannot push
+    one query's predicate down), so the cache key carries a
+    ``"shared"`` prefix to keep these closures apart from the dedicated
+    path's (same exec signature, other predicate placement).  Algorithm
+    and domain come from the same ``fused_plan_params`` the dedicated
+    path uses.  Returns None outside the fused subset; ``finish``
+    returns None on sort-cap overflow, and the caller falls back to the
+    general operators."""
+    if q.joins:
+        return None   # shared scans coalesce single-table queries only
+    params = fused_plan_params(q, plan, stats)
+    if params is None:
+        return None
+    algo, domain, domains = params
+    base_sig = _plan_signature(db, q, plan, algo, domain, domains,
+                               db.block_rows)
+    sig = ("shared",) + base_sig[1:]
+    if sig in _SORT_OVERFLOWED or base_sig in _SORT_OVERFLOWED:
+        return None   # known to exceed the sort cap: don't re-try
+    fused, hit = PLAN_CACHE.get_or_build(
+        sig, lambda: _build_fused(q, q.predicate, algo, domains, domain,
+                                  tuple(q.aggs)))
+    stats.plan_cache = "hit" if hit else "miss"
+    res = fused(cols, valid, ())
+
+    def finish(host_res) -> Optional[Dict[str, np.ndarray]]:
+        # overflow poisons BOTH signatures: the dedicated path would
+        # overflow on the same data, so a later solo dispatch shouldn't
+        # re-try either
+        return _shape_fused_result(q, host_res, algo, domain, domains,
+                                   stats, sigs=(sig, base_sig))
+
+    return res, finish
+
+
+def execute_shared_fused(db: VerticaDB, q, plan,
+                         cols: Dict[str, torch.Tensor], valid: torch.Tensor,
+                         stats) -> Optional[Dict[str, np.ndarray]]:
+    """Synchronous wrapper around :func:`execute_shared_fused_deferred`:
+    launch, fetch, shape."""
+    d = execute_shared_fused_deferred(db, q, plan, cols, valid, stats)
+    if d is None:
+        return None
+    res, finish = d
+    return finish(to_host(res))

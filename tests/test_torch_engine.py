@@ -269,11 +269,21 @@ def test_state_of_is_plain_python_and_numpy():
 
 
 def test_port_only_entry_points_raise_until_ported():
-    # serve() waits for the serving slice; attach_mesh() and rejoin_node()
-    # are ported (tests/test_torch_segmented.py, test_torch_recovery.py)
+    # every entry point is ported now: serve() (tests/test_torch_serving.py),
+    # attach_mesh() and rejoin_node() (tests/test_torch_segmented.py,
+    # test_torch_recovery.py)
     db = _load(port_core, 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        db.serve()
+    svc = db.serve()
+    assert isinstance(svc, port_engine.QueryService)
+    qb = _queries(db, port_engine.col)["Q3"]
+    ticket = svc.submit(qb)
+    svc.drain()
+    want = qb.collect()
+    got = ticket.result()
+    assert sorted(got) == sorted(want)
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c])
+    assert svc.stats.device_transfers == svc.stats.drains == 1
     mesh = db.attach_mesh()
     assert db.mesh is mesh and mesh.n_shards == 1
     assert mesh.device.type == "cpu"
@@ -387,3 +397,51 @@ def test_rle_runs_cache_follows_the_tuple_mover():
     for c in want:
         np.testing.assert_array_equal(np.asarray(got[c]).astype(np.int64),
                                       np.asarray(want[c]).astype(np.int64))
+
+
+@pytest.mark.parametrize("mode", ["decoded", "compressed"])
+def test_fused_deferred_then_to_host_equals_execute_fused(mode):
+    """``execute_fused`` is the synchronous wrapper of
+    ``execute_fused_deferred``: launching, fetching the result with
+    ``to_host`` (also as a one-entry flight) and finishing it gives the
+    same arrays, bit for bit, over the decoded and the compressed scan.
+    A single-table query run by ``execute_shared_fused`` over the
+    unpruned scan a serving group shares gives them too."""
+    from repro_torch.engine import executor
+    from repro_torch.engine.pipeline import ExecStats
+    db = _load(port_core, 0, device="cpu")
+    db.exec_mode = mode
+    compressed = 0
+    for name, qb in _queries(db, port_engine.col).items():
+        q = qb.to_ir()
+        plan = plan_query(db, q)
+        if plan.groupby_algorithm == "rle" or plan.scalar_rle:
+            continue                      # the RLE routes are not fused
+        as_of = db.epochs.latest_queryable()
+        want = executor.execute_fused(db, q, plan, as_of, ExecStats())
+        assert want is not None, name
+        for flight in (False, True):
+            es = ExecStats()
+            res, finish = executor.execute_fused_deferred(db, q, plan,
+                                                          as_of, es)
+            host = executor.to_host([res])[0] if flight \
+                else executor.to_host(res)
+            got = finish(host)
+            assert sorted(got) == sorted(want), name
+            for c in want:
+                assert got[c].dtype == want[c].dtype, (name, c)
+                np.testing.assert_array_equal(got[c], want[c])
+            compressed += es.compressed_scan
+        if q.joins:
+            continue
+        proj = db.catalog.projections[plan.projection]
+        scan = executor.scan_stores_batched(
+            db, plan, sorted(q.scan_columns(proj)), None, None, as_of,
+            ExecStats())
+        got = executor.execute_shared_fused(db, q, plan, scan.columns,
+                                            scan.valid, ExecStats())
+        assert sorted(got) == sorted(want), name
+        for c in want:
+            np.testing.assert_array_equal(got[c].astype(want[c].dtype),
+                                          want[c])
+    assert bool(compressed) == (mode == "compressed")

@@ -33,10 +33,12 @@ def test_importing_every_module_leaves_out_jax_and_repro():
     assert bad == "[]", bad
     expected = {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}
-    assert int(n) == len(expected) >= 67
+    assert int(n) == len(expected) >= 68
     for name in ("repro_torch.distributed", "repro_torch.distributed.mesh",
                  "repro_torch.engine.segmented",
                  "repro_torch.engine.exchange",
+                 "repro_torch.engine.executor",
+                 "repro_torch.engine.serving",
                  "repro_torch.core.recovery",
                  "repro_torch.planner.designer"):
         assert name in expected, name
