@@ -151,6 +151,32 @@ Phases, one line each (any failure raises and the script exits non-zero):
    ``torch.cuda.set_sync_debug_mode("warn")``, by source line.
    seg_preagg is held as in phase 4 on the shared members' inputs (JSON
    rows named ``serve-..``).
+11. training (``train_phase``, last; phase 8's model is freed first):
+   a. ``flash_attention_bwd`` (the port's own kernel: the gradient of the
+   forward, which has no Pallas backward) against float64 autograd of
+   ``flash_attention_plain`` on the model's permuted views: bf16 and f32,
+   head dims 64/96/128, causal and not, G = 1 and 4, S = 300, and S != T
+   both ways (130 x 200 causal, 200 x 70 not); max |err| of dq, dk, dv
+   within ``BWD_TOL`` times max(1, max |want|), the plain backward's gap
+   printed beside it, and a second launch bit for bit the first;
+   c. qwen3-4b at full width and depth with f32 master weights, bf16
+   compute and remat "minimal", 4 x 512 tokens a step from a port
+   ``TokenStore`` pinned at its data epoch: one step's loss and global
+   grad norm through the kernels and again through the plain versions
+   (within ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_RTOL``), with the counters
+   zeroed just before and read just after (``flash_attention`` 72 = 36
+   layers x 2 with the recompute, ``flash_attention_bwd`` 72 = 36 calls
+   x 2 launches, nothing else); then 5 AdamW steps, each with those
+   launches and a finite loss (``[train]`` lines: step ms, tokens/s),
+   the peak ``max_memory_allocated`` of the steps and the device busy
+   share of one profiled step;
+   b. two ``flash_attention_bwd`` JSON rows at phase 8's shapes (event
+   and device ms, bound, plain ms, SDPA's backward alone with kv
+   expanded as ``library_ms``, and the launches of one training step);
+   d. ``python -m repro_torch.launch.train`` at d 512, 4 layers, vocab
+   2048 (head dim 64), run twice in subprocesses, straight and with
+   ``--fail-at-step 8`` (buddy restore from the last good epoch, then
+   replay): the two final checkpoints equal bit for bit.
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
@@ -160,13 +186,17 @@ bitunpack its one-container shape and the whole scan (``ms``,
 (for seg_preagg and rle_grouped_agg the output-initialising kernel
 included, and ``fold_device_ms`` without it);
 ``bound_ms``: the bytes each call must move on its inputs over the
-H100's 3.35 TB/s, for ``flash_attention`` the larger of that and its
-flops over the 989 TFLOP/s bf16 rate, with ``bound_by`` and
-``bound_share``, the bound over ``kernel_device_ms``; ``launches``:
+H100's 3.35 TB/s, for ``flash_attention`` and ``flash_attention_bwd``
+the larger of that and its flops over the 989 TFLOP/s bf16 rate, with
+``bound_by`` and ``bound_share``, the bound over ``kernel_device_ms``
+(a flash row whose device time reads below its bound fails);
+``kernel_device_ms`` counts the kernel events it sums and fails unless
+the trace holds every launch of its calls; ``launches``:
 the run of the kernel's path -- the main path, phase 6 for the
 whole-scan bitunpack row, phase 5 for the four kernels only ``ops``
 reaches, phase 9's SF1 runs for the ``seg-`` seg_preagg rows, phase 10
-for the ``serve-`` rows, or phase 8's prefill shape), and
+for the ``serve-`` rows, phase 8's prefill shape, or one training
+step for ``flash_attention_bwd``), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
 """
@@ -226,43 +256,126 @@ def _bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _profile(fn, reps: int = 1, kernels_only: bool = False):
-    """Device milliseconds per call from a torch.profiler trace of
-    ``reps`` calls: the total and the share by name.  By default the
-    names are every traced event with device time, so an aten op's own
-    entry repeats its kernels' time; ``kernels_only`` keeps the device
-    kernels alone.  Returns (None, {}) when the trace holds no device
-    time."""
+# A torch.profiler trace loses some of its kernel records: none in a
+# fresh process, later the first 4-5 of a session, or runs of them
+# further on (PERF.md).  Each trace therefore opens and closes
+# with this many spin kernels, which take the loss and are left out of
+# every sum; a trace that kept none of its opening or of its closing
+# spin kernels fails, since it may have lost measured ones too.
+PROFILE_PAD_KERNELS = 1024
+PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
+
+
+def _pad_kernels() -> None:
     import torch
-    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_PAD_KERNELS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def _traced(fn, reps: int):
+    """A torch.profiler trace of ``reps`` calls of ``fn`` (after one
+    untraced warm-up call), between two runs of ``PROFILE_PAD_KERNELS``
+    spin kernels on an idle card."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_kernels()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        _pad_kernels()
+    return prof
+
+
+class TraceLoss(AssertionError):
+    """A profiler trace that may have lost measured kernel records."""
+
+
+def _device_events(prof):
+    """The trace's device kernel events less its spin kernels; raises
+    ``TraceLoss`` unless some of the opening spin kernels come before the
+    first of them and some of the closing ones after the last."""
+    from torch.autograd import DeviceType
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    pads = [i for i, e in enumerate(dev) if PAD_KERNEL in e.name]
+    calls = [i for i, e in enumerate(dev) if PAD_KERNEL not in e.name]
+    first, last = (calls[0], calls[-1]) if calls else (len(dev), -1)
+    if not (pads and pads[0] < first and pads[-1] > last):
+        raise TraceLoss(f"profiler trace kept {len(pads)} of its "
+                        f"{2 * PROFILE_PAD_KERNELS} spin kernels, not one "
+                        f"on each side of the measured calls: it may have "
+                        f"lost some of their kernels")
+    return [dev[i] for i in calls]
+
+
+def _profile(fn, reps: int = 1):
+    """Device milliseconds per call of the device kernels in a
+    torch.profiler trace of ``reps`` calls: the total and the share by
+    kernel name.  Returns (None, {}) when the trace holds no kernel."""
     by_name = {}
-    for e in prof.key_averages():
-        if kernels_only and e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            by_name[e.key] = us / 1e3 / reps
+    for e in _device_events(_traced(fn, reps)):
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / reps
     total = sum(by_name.values())
     return (total or None), by_name
 
 
-def _kernel_device_ms(fn, kernel: str, exclude: str = None):
+def _kernel_events(fn, reps: int, kernel: str, exclude: str = None):
+    """The device kernel events of a trace of ``reps`` calls whose names
+    hold ``kernel`` (and not ``exclude``), as (start us, duration us), and
+    the trace's count of all device kernel events of the calls."""
+    dev = _device_events(_traced(fn, reps))
+    hit = [(e.time_range.start, e.time_range.elapsed_us()) for e in dev
+           if kernel in e.name and not (exclude and exclude in e.name)]
+    return sorted(hit), len(dev)
+
+
+PROFILE_REPS, PROFILE_ATTEMPTS = 20, 3
+
+
+def _kernel_device_ms(fn, kernel: str, exclude: str = None,
+                      per_call: int = None) -> float:
     """Device ms per call of the CUDA kernels whose names hold ``kernel``
-    (and not ``exclude``), without launch gaps and without the torch ops
-    around them, or None when the trace holds no device time."""
-    _, by_name = _profile(fn, reps=20)
-    return sum(v for k, v in by_name.items() if kernel in k and not (
-        exclude and exclude in k)) or None
+    (and not ``exclude``), summed over the kernel events of a trace of
+    ``PROFILE_REPS`` calls: without launch gaps and without the torch
+    ops around them.  ``per_call`` is the number of such kernels one call launches;
+    where that depends on the data (a launcher that initialises its
+    output in a kernel of its own on one route only) it is counted in a
+    trace of one call, and must be at least 1.  A trace of
+    ``PROFILE_REPS`` calls must hold exactly ``PROFILE_REPS * per_call``
+    of them, so no kernel's time can go missing unnoticed (a row whose
+    device time reads below its bound): one that does not is printed as a
+    ``[profile]`` line and traced again, up to ``PROFILE_ATTEMPTS`` times,
+    then the run fails."""
+    reps, why = PROFILE_REPS, ""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        try:
+            n = per_call
+            if n is None:
+                n = len(_kernel_events(fn, 1, kernel, exclude)[0])
+                if n < 1:
+                    raise TraceLoss("a trace of one call holds no such "
+                                    "kernel")
+            hit, n_dev = _kernel_events(fn, reps, kernel, exclude)
+            if len(hit) == reps * n:
+                return sum(d for _, d in hit) / 1e3 / reps
+            t0 = hit[0][0] if hit else 0.0
+            why = (f"the trace of {reps} calls holds {len(hit)} of the "
+                   f"{reps * n} kernels they launch ({n_dev} device kernel "
+                   f"events in all; matched events at "
+                   f"{[(round(t - t0, 1), round(d, 1)) for t, d in hit][:6]}"
+                   f" us)")
+        except TraceLoss as e:
+            why = str(e)
+        _say("profile", lost_kernels=kernel.replace(" ", "_"),
+             attempt=attempt, why=why.replace(" ", "_")[:200])
+    raise AssertionError(f"device time of {kernel!r}: {why}")
 
 
 def _fmt(ms) -> str:
@@ -1406,7 +1519,7 @@ def profile_queries(db, warm) -> None:
     time, the share of the untraced warm wall time the device was busy,
     and the kernel that took most of the device time."""
     for name, qb in make_queries(db).items():
-        dev_ms, by_name = _profile(qb.collect, kernels_only=True)
+        dev_ms, by_name = _profile(qb.collect)
         if dev_ms is None:
             _say("profile", name=name, device_ms="not measured")
             continue
@@ -1960,7 +2073,7 @@ def serving_phase(db, fact, dim, device):
             _serve_round(db, {f"mix{i}": q for i, q in enumerate(mix)},
                          queue_depth=len(mix) + 1, max_coalesce=len(mix))
         round_ms = _host_ms(mix_round, reps=5)
-        dev_ms, by_name = _profile(mix_round, kernels_only=True)
+        dev_ms, by_name = _profile(mix_round)
         busy = "not measured" if dev_ms is None \
             else f"{dev_ms / round_ms:.4f}"
         _say("serving", round="closed_loop", clients=LOOP_CLIENTS,
@@ -2141,7 +2254,7 @@ def _comp_query(db, name, qb, mode, budget, fact, dim, table, device,
     n_dec = sum(1 for k in db.block_cache.keys()
                 if k[2] == KIND_DECODED and k[0] in ids)
     in_use = db.block_cache.stats.bytes_in_use
-    dev_ms, by_name = _profile(qb.collect, kernels_only=True)
+    dev_ms, by_name = _profile(qb.collect)
     dec = _comp_runs(db, qb, "decoded", budget, False, device)
     for _, _, res, _ in comp + dec:
         check(name, res, fact, dim)
@@ -2360,7 +2473,7 @@ def _seg_profile(phase, name, qb, warm_ms) -> None:
     """One more warm run under torch.profiler: device kernels only, the
     share of the untraced warm wall time the card was busy, and the
     kernel that took most of the device time."""
-    dev_ms, by_name = _profile(qb.collect, kernels_only=True)
+    dev_ms, by_name = _profile(qb.collect)
     if dev_ms is None:
         _say("profile", path=phase, name=name, device_ms="not measured")
         return
@@ -2749,16 +2862,30 @@ def _flash_check(got, want, dtype: str) -> dict:
     return out
 
 
-def _flash_work(q, k, causal: bool):
-    """Bytes (q, k, v read once, out written once: k and v unexpanded)
-    and flops (2 d per unmasked (query, key) pair for q.k and again for
-    P.V) of one call."""
+def _flash_work(q, k, causal: bool, tensors: int = 2,
+                flops_per_d: int = 4):
+    """Bytes and flops of one attention call on q ``(..., S, d)`` and k
+    ``(..., T, d)`` (k unexpanded): ``tensors`` q-shaped and as many
+    k-shaped tensors each read or written once, and ``flops_per_d`` d
+    flops per unmasked (query, key) pair.  The forward: q, out; k, v;
+    2 d for q.k and 2 d for P.V."""
     S, d = q.shape[-2:]
     T = k.shape[-2]
     pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
     n_q = q.numel() // (S * d)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4 * d * pairs * n_q
+    nbytes = tensors * (q.numel() + k.numel()) * q.element_size()
+    return nbytes, flops_per_d * d * pairs * n_q
+
+
+def _sdpa_inputs(q, k, v):
+    """q ``(B, K, G, S, d)`` and k, v ``(B, K, 1, T, d)`` as SDPA's (B,
+    heads, rows, d), kv expanded to the q heads: the library yardstick's
+    inputs, made once outside its timed call."""
+    B, K, G, S, d = q.shape
+    T = k.shape[-2]
+    return (q.reshape(B, K * G, S, d).contiguous(),
+            *(t.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
+              for t in (k, v)))
 
 
 def _flash_row(q, k, v, causal, launches, stats, shape):
@@ -2768,16 +2895,13 @@ def _flash_row(q, k, v, causal, launches, stats, shape):
     nbytes, flops = _flash_work(q, k, causal)
     by_bytes = _bound_ms(nbytes)
     by_ops = flops / BF16_FLOPS_PER_S * 1e3
-    # the library yardstick: SDPA over (B, heads, S, d), kv expanded to
-    # the q heads once, outside the timed call
-    B, K, G, S, d = q.shape
-    T = k.shape[-2]
-    lq = q.reshape(B, K * G, S, d).contiguous()
-    lk = k.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
-    lv = v.expand(B, K, G, T, d).reshape(B, K * G, T, d).contiguous()
+    lq, lk, lv = _sdpa_inputs(q, k, v)
     fn = lambda: ops.flash_attention(q, k, v, causal=causal)
-    device_ms = _kernel_device_ms(fn, "flash_attention_kernel")
+    device_ms = _kernel_device_ms(fn, "flash_attention_kernel", per_call=1)
     bound_ms = max(by_bytes, by_ops)
+    if device_ms < bound_ms:
+        raise AssertionError(f"flash_attention {tuple(q.shape)}: device "
+                             f"{device_ms} ms below its bound {bound_ms}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:73",
@@ -2790,7 +2914,7 @@ def _flash_row(q, k, v, causal, launches, stats, shape):
                 lq, lk, lv, is_causal=causal), reps=10),
             "bound_ms": bound_ms,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_share": None if device_ms is None else bound_ms / device_ms,
+            "bound_share": bound_ms / device_ms,
             "bound_bytes": nbytes, "bound_flops": flops, "shape": shape}
 
 
@@ -2978,7 +3102,7 @@ def lm_phase(device):
     for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
             params, {"tokens": prompts[LM_SERVE]})), ("decode step", step)):
         host_ms = _host_ms(fn)
-        _, kernels = _profile(fn, kernels_only=True)
+        _, kernels = _profile(fn)
         if not kernels:
             _say("profile", lm=what.replace(" ", "_"),
                  device_ms="not measured")
@@ -2992,6 +3116,430 @@ def lm_phase(device):
              flash_ms=f"{flash:.4f}", kernels=len(kernels),
              top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
                              for k2 in top}, separators=(",", ":")))
+    return rows
+
+
+
+# -------------------------------------------------------- training path --
+
+# phase 11a: the backward kernel against float64 autograd of the plain
+# forward's formulas, max |err| within BWD_TOL times max(1, max |want|) of
+# each gradient (bf16: a rounding of the inputs' type, 2^-8, with room for
+# the f32 sums; f32: summation order over up to 4 x 300 rows); phase 11b
+# holds it to the same bf16 limit against the plain backward at the
+# training path's shapes
+BWD_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+# phase 11c: one step's loss (nats) and global grad norm (relative), the
+# kernels' route against the plain versions': the two attentions differ
+# by an f32 rounding, which bf16 activations carry through 36 layers.
+# The global norm is mostly the logits' and the tied embedding's, so the
+# wq, wk and wv gradients of the first and last layer are held too:
+# ||kernels - plain|| within TRAIN_LEAF_RTOL of ||plain||, each leaf
+# (on an H100 these gaps read 5.6e-3-1.4e-2; a backward that sums one of
+# the G query heads into dk and dv reads 0.86-0.99 on wk and wv)
+TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL = 2e-2, 2e-2, 3e-2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+# phase 11d: the driver at a small config (head dim 64)
+DRIVER_ARGS = ("--d-model", "512", "--layers", "4", "--vocab", "2048",
+               "--steps", "12", "--batch", "8", "--seq", "128",
+               "--ckpt-every", "5", "--n-docs", "64", "--doc-len", "257")
+DRIVER_FAIL_AT = 8
+
+
+def _model_views(B, S, K, G, d, dtype, gen, device):
+    """q (B,K,G,S,d) and k, v (B,K,1,S,d) as the permuted views the
+    model's train mode hands the kernels."""
+    import torch
+    q = torch.randn((B, S, K, G, d), generator=gen, device=device)
+    k, v = (torch.randn((B, S, K, d), generator=gen, device=device)
+            for _ in range(2))
+    return (q.to(dtype).permute(0, 2, 3, 1, 4),
+            k.to(dtype).permute(0, 2, 1, 3).unsqueeze(2),
+            v.to(dtype).permute(0, 2, 1, 3).unsqueeze(2))
+
+
+def _attention64(q, k, v, causal: bool):
+    """``flash_attention_plain``'s formulas in float64 (it computes in
+    f32): the reference the backward kernel's gradients are held to."""
+    import torch
+    from repro_torch.kernels.flash_attention import NEG_INF
+    s = torch.matmul(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    if causal:
+        S, T = s.shape[-2:]
+        mask = (torch.arange(S, device=s.device)[:, None]
+                >= torch.arange(T, device=s.device)[None, :])
+        s = torch.where(mask, s, NEG_INF)
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def flash_bwd_checks(device) -> None:
+    """Phase 11a: ``flash_attention_bwd`` on the card against float64
+    autograd of the attention, with the plain backward's gap printed
+    beside it, and bit for bit against its own second launch.  The last
+    two cases are the training path's own (qwen3-4b: 8 kv heads of 4 q
+    heads, d 128) at 4 x 512 and 1 x 4096."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=device).manual_seed(11)
+    cases = [(f"{dt}_d{d}_{'causal' if c else 'full'}_G{G}_S300",
+              (2, 300, 2, G, d), 300, dt, c)
+             for dt in ("bfloat16", "float32") for d in (64, 96, 128)
+             for c in (True, False) for G in (1, 4)]
+    cases += [("bfloat16_d128_causal_S130_T200", (1, 130, 2, 4, 128), 200,
+               "bfloat16", True),
+              ("bfloat16_d128_full_S200_T70", (1, 200, 2, 4, 128), 70,
+               "bfloat16", False)]
+    cfg = configs.get(LM_ARCH)
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    cases += [(f"bfloat16_train_{B}x{S}", (B, S, K, G, d), S, "bfloat16",
+               True) for B, S in ((LM_SERVE[0], LM_SERVE[1]),
+                                  (LM_LONG[0], LM_LONG[1]))]
+    for name, (B, S, K, G, d), T, dt, causal in cases:
+        tdt = getattr(torch, dt)
+        q, _, _ = _model_views(B, S, K, G, d, tdt, g, device)
+        _, k, v = _model_views(B, T, K, 1, d, tdt, g, device)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        dout = torch.randn(out.shape, generator=g, device=device).to(tdt)
+        got = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        again = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        plain = ops.flash_attention_bwd_plain(q, k, v, out, dout,
+                                              causal=causal)
+        x64 = [t.detach().to(torch.float64).requires_grad_()
+               for t in (q, k, v)]
+        want = torch.autograd.grad(_attention64(*x64, causal), x64,
+                                   dout.to(torch.float64))
+        del x64
+        torch.cuda.synchronize()
+        errs, plain_errs, limits = [], [], []
+        for a, p, w, x in zip(got, plain, want, (q, k, v)):
+            if a.shape != x.shape or a.dtype != x.dtype \
+                    or not torch.isfinite(a).all():
+                raise AssertionError(f"flash_attention_bwd {name}: gradient "
+                                     f"{tuple(a.shape)} {a.dtype} for "
+                                     f"{tuple(x.shape)} {x.dtype}")
+            errs.append(float((a.double() - w).abs().max()))
+            plain_errs.append(float((p.double() - w).abs().max()))
+            limits.append(BWD_TOL[dt] * max(1.0, float(w.abs().max())))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        _say("check", kernel="flash_attention_bwd", case=name,
+             max_abs_err_dq_dk_dv=json.dumps([float(f"{e:.3g}")
+                                              for e in errs]),
+             plain_max_abs_err=json.dumps([float(f"{e:.3g}")
+                                           for e in plain_errs]),
+             limits=json.dumps([float(f"{x:.3g}") for x in limits]),
+             rerun_bit_identical=same)
+        if not same or any(e > lim for e, lim in zip(errs, limits)):
+            raise AssertionError(f"flash_attention_bwd {name}: errors {errs} "
+                                 f"(limits {limits}), rerun identical "
+                                 f"{same}")
+
+
+def flash_bwd_row(shape, launches, device) -> dict:
+    """Phase 11b: the ``flash_attention_bwd`` JSON row at one of phase 8's
+    prefill shapes, on the model's views: event and device ms, bound,
+    plain ms, and SDPA's backward alone (kv expanded) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    cfg = configs.get(LM_ARCH)
+    B, S = shape
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device=device).manual_seed(12)
+    q, k, v = _model_views(B, S, K, G, d, torch.bfloat16, g, device)
+    out = ops.flash_attention(q, k, v)
+    dout = torch.randn(out.shape, generator=g, device=device).to(
+        torch.bfloat16)
+    fn = lambda: ops.flash_attention_bwd(q, k, v, out, dout)
+    plain = lambda: ops.flash_attention_bwd_plain(q, k, v, out, dout)
+    # dq, dk, dv each within phase 11a's bf16 limit of the plain backward
+    errs, limits = [], []
+    for a, b in zip(fn(), plain()):
+        errs.append(float((a.float() - b.float()).abs().max()))
+        limits.append(BWD_TOL["bfloat16"] * max(1.0, float(
+            b.float().abs().max())))
+    err = max(errs)
+    # q, out, dout, dq; k, v, dk, dv; the gradient's five products
+    nbytes, flops = _flash_work(q, k, True, tensors=4, flops_per_d=10)
+    by_bytes = _bound_ms(nbytes)
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    lq, lk, lv = (t.requires_grad_() for t in _sdpa_inputs(q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    ldo = dout.reshape(B, K * G, S, d)
+    library = lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                          retain_graph=True)
+    device_ms = _kernel_device_ms(fn, "flash_attention_bwd", per_call=2)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "none: the port's own kernel, the gradient of "
+                       "src/repro/kernels/flash_attention.py:73's "
+                       "function, which has no Pallas backward",
+           "launches": launches, "launches_path": "training step",
+           "max_abs_err": err, "ms": _time_ms(fn, reps=5),
+           "kernel_device_ms": device_ms,
+           "plain_ms": _time_ms(plain, reps=3),
+           "library_ms": _time_ms(library, reps=5),
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "bound_share": bound_ms / device_ms,
+           "bound_bytes": nbytes, "bound_flops": flops,
+           "shape": f"train {B}x{S}: q {tuple(q.shape)} k {tuple(k.shape)} "
+                    f"bf16 causal"}
+    _say_row(row, bound_by=row["bound_by"],
+             bound_share=_fmt(row["bound_share"]),
+             max_abs_err=f"{err:.3g}", shape=f"{B}x{S}",
+             max_abs_err_dq_dk_dv=json.dumps([float(f"{e:.3g}")
+                                              for e in errs]),
+             limits=json.dumps([float(f"{x:.3g}") for x in limits]))
+    if any(e > lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"flash_attention_bwd {B}x{S}: errors {errs} "
+                             f"against the plain backward (limits "
+                             f"{limits})")
+    if device_ms < bound_ms:
+        raise AssertionError(f"flash_attention_bwd {B}x{S}: device "
+                             f"{device_ms} ms below its bound {bound_ms}")
+    return row
+
+
+def _plain_attention():
+    """Swaps the plain forward and backward in for the kernels inside
+    ``flash_attention_train`` (its autograd function looks both up in
+    the module at call time); returns the undo."""
+    from repro_torch.kernels import flash_attention as fa
+    saved = fa.flash_attention, fa.flash_attention_bwd
+    fa.flash_attention = lambda q, k, v, causal=True, **kw: \
+        fa.flash_attention_plain(q, k, v, causal=causal)
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+
+    def undo():
+        fa.flash_attention, fa.flash_attention_bwd = saved
+    return undo
+
+
+def _attn_grad_leaves(model, params, grads) -> dict:
+    """Copies of the wq, wk and wv gradients of the first and last layer,
+    by name, from ``loss_and_grads``' per-layer gradients."""
+    from repro_torch.models.transformer import segments
+    from repro_torch.train.train_step import split_layers
+    from repro_torch.train.tree import tree_flatten, tree_unflatten
+    _, treedef = tree_flatten(split_layers(model, params))
+    layers = next(tree_unflatten(treedef, grads)[seg.name]
+                  for seg in segments(model.cfg) if seg.scanned)
+    return {f"layer{i}.{w}": layers[i]["attn"][w].detach().clone()
+            for i in (0, len(layers) - 1) for w in ("wq", "wk", "wv")}
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want||, leaf by leaf."""
+    return {n: float((got[n] - want[n]).norm() / want[n].norm())
+            for n in want}
+
+
+def train_full_width(device) -> dict:
+    """Phase 11c: qwen3-4b at full width and depth, f32 master weights,
+    bf16 compute, remat "minimal", 4 x 512 tokens a step from a token
+    store pinned at its data epoch.  Returns the launches of one step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import TokenStore, token_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.train_step import (init_train_state,
+                                              loss_and_grads,
+                                              make_train_step)
+    cfg = configs.get(LM_ARCH)
+    model = build_model(cfg, tp=1, remat="minimal", device=device)
+    t0 = time.perf_counter()
+    state = init_train_state(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    store = TokenStore.create(n_nodes=4, device=device)
+    epoch = store.ingest(token_corpus(32, TRAIN_SEQ + 1, cfg.vocab_size,
+                                      seed=0))
+    stream = store.batches(TRAIN_BATCH, TRAIN_SEQ, as_of=epoch, seed=0)
+    batches = [{k: torch.as_tensor(x, device=device)
+                for k, x in next(stream).items()}
+               for _ in range(TRAIN_STEPS + 2)]
+    st = store.storage_stats()
+    _say("train", arch=cfg.name, params=model.n_params, remat=model.remat,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=f"{init_s:.2f}",
+         corpus_tokens=st["rows"], data_epoch=epoch,
+         compression=f"{st['ratio']:.2f}")
+
+    # ---- one step's loss and grad norm, kernels then plain versions
+    ops.reset_launch_counts()
+    loss_k, grads = loss_and_grads(model, state["params"], batches[0])
+    gnorm_k = float(global_norm(grads))
+    leaves_k = _attn_grad_leaves(model, state["params"], grads)
+    torch.cuda.synchronize()
+    per_step = ops.launch_counts()
+    del grads
+    undo = _plain_attention()
+    try:
+        loss_p, grads = loss_and_grads(model, state["params"], batches[0])
+        gnorm_p = float(global_norm(grads))
+        leaves_p = _attn_grad_leaves(model, state["params"], grads)
+    finally:
+        undo()
+    del grads
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    gaps = _leaf_gaps(leaves_k, leaves_p)
+    del leaves_k, leaves_p
+    _say("check", train="kernels_vs_plain", loss_kernels=f"{loss_k:.6f}",
+         loss_plain=f"{loss_p:.6f}", loss_tol=TRAIN_LOSS_TOL,
+         grad_norm_kernels=f"{gnorm_k:.6f}",
+         grad_norm_plain=f"{gnorm_p:.6f}", grad_norm_rtol=TRAIN_GNORM_RTOL,
+         leaf_rel_gaps=json.dumps({n: float(f"{x:.3g}")
+                                   for n, x in gaps.items()},
+                                  separators=(",", ":")),
+         leaf_rtol=TRAIN_LEAF_RTOL)
+    if not (np.isfinite([loss_k, loss_p, gnorm_k, gnorm_p,
+                         *gaps.values()]).all()
+            and abs(loss_k - loss_p) <= TRAIN_LOSS_TOL
+            and abs(gnorm_k - gnorm_p) <= TRAIN_GNORM_RTOL * gnorm_p
+            and max(gaps.values()) <= TRAIN_LEAF_RTOL):
+        raise AssertionError(f"training step, kernels vs plain: loss "
+                             f"{loss_k} / {loss_p}, grad norm {gnorm_k} / "
+                             f"{gnorm_p}, leaf gaps {gaps}")
+    # remat "minimal": each layer's forward runs twice (the pass and the
+    # recompute in the backward), its backward once (two launches)
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": 2 * cfg.n_layers}
+    got = {k: n for k, n in per_step.items() if n}
+    if got != want:
+        raise AssertionError(f"launches of one training step {got}, "
+                             f"expected {want}")
+
+    # ---- AdamW steps
+    rc = RunConfig(total_steps=100, warmup_steps=2)
+    step = make_train_step(model, rc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, batches[i])
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: n for k, n in ops.launch_counts().items() if n}
+        _say("train", step=i + 1, loss=f"{loss:.6f}",
+             grad_norm=f"{float(met['grad_norm']):.6f}",
+             lr=f"{float(met['lr']):.3e}", step_ms=f"{times[-1] * 1e3:.3f}",
+             tok_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / times[-1]:.1f}",
+             launches=json.dumps(got, separators=(",", ":")))
+        if not np.isfinite(loss) or got != want:
+            raise AssertionError(f"training step {i + 1}: loss {loss}, "
+                                 f"launches {got} (expected {want})")
+    peak = torch.cuda.max_memory_allocated()
+    # ---- one profiled step (after an untraced one): its device kernels
+    # against the steady steps' host time
+    it = iter(batches[TRAIN_STEPS:])
+
+    def one():
+        nonlocal state
+        state, _ = step(state, next(it))
+    kern = {}
+    for e in _device_events(_traced(one, 1)):
+        kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+    dev_ms = sum(kern.values()) / 1e3
+    host_ms = float(np.median(times[1:])) * 1e3
+    flash_ms = sum(v for k, v in kern.items()
+                   if "flash_attention" in k) / 1e3
+    top = sorted(kern, key=kern.get, reverse=True)[:6]
+    _say("train", summary=cfg.name, steps=TRAIN_STEPS,
+         step_ms_median=f"{host_ms:.3f}",
+         step_ms_all=json.dumps([round(t * 1e3, 3) for t in times]),
+         tok_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / host_ms * 1e3:.1f}",
+         max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+         profiled_kernel_ms=f"{dev_ms:.3f}",
+         busy_share=f"{dev_ms / host_ms:.4f}",
+         flash_kernel_ms=f"{flash_ms:.3f}", kernels=len(kern),
+         top=json.dumps({k.replace(" ", "_")[:72]: round(kern[k] / 1e3, 3)
+                         for k in top}, separators=(",", ":")))
+    _say("launches", path="train", **want)
+    return want
+
+
+def driver_replay(device) -> None:
+    """Phase 11d: ``python -m repro_torch.launch.train`` on the card at a
+    small config, straight through and with ``--fail-at-step`` (node 1
+    lost: buddy restore from the last good epoch, then replay); the two
+    final checkpoints must hold the same state bit for bit."""
+    import shutil
+    import tempfile
+    root = os.path.join(REPO, "results")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_replay_", dir=root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    finals = {}
+    try:
+        for label, extra in (("straight", ()), ("failed", (
+                "--fail-at-step", str(DRIVER_FAIL_AT)))):
+            ck = os.path.join(tmp, label)
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 *DRIVER_ARGS, "--device", str(device), "--ckpt-dir", ck,
+                 *extra], cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"driver ({label}) exit "
+                                     f"{out.returncode}:\n{out.stdout}\n"
+                                     f"{out.stderr[-4000:]}")
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("[train]")]
+            for ln in lines:
+                print(f"[driver] {label}: {ln[8:]}", flush=True)
+            if _is_cuda(device) and "flash_attention_bwd" not in lines[-1]:
+                raise AssertionError(f"driver ({label}) launched no "
+                                     f"backward kernel: {lines[-1]}")
+            (cfg_dir,) = os.listdir(ck)
+            steps = int(DRIVER_ARGS[DRIVER_ARGS.index("--steps") + 1])
+            epoch = os.path.join(ck, cfg_dir, f"epoch_{steps:08d}")
+            finals[label] = {s: dict(np.load(os.path.join(
+                epoch, f"node_{s}", f"primary_shard_{s}", "state.npz")))
+                for s in range(4)}
+            _say("driver", run=label,
+                 seconds=f"{time.perf_counter() - t0:.1f}")
+        a, b = finals["straight"], finals["failed"]
+        n = 0
+        for s in a:
+            if sorted(a[s]) != sorted(b[s]):
+                raise AssertionError(f"shard {s}: leaves differ")
+            for key in a[s]:
+                n += 1
+                if not np.array_equal(a[s][key], b[s][key]):
+                    raise AssertionError(
+                        f"replayed run differs from the straight run: "
+                        f"shard {s} {key}")
+        _say("check", driver="fail_at_step_replay", fail_at=DRIVER_FAIL_AT,
+             leaves_compared=n, bit_identical=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_phase(device):
+    """Phase 11: training.  Returns the flash_attention_bwd JSON rows."""
+    import torch
+    flash_bwd_checks(device)
+    per_step = train_full_width(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = [flash_bwd_row(shape, per_step["flash_attention_bwd"], device)
+            for shape in ((LM_SERVE[0], LM_SERVE[1]),
+                          (LM_LONG[0], LM_LONG[1]))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    driver_replay(device)
     return rows
 
 
@@ -3101,6 +3649,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows += lm_phase(device)
+    torch.cuda.synchronize()
+    gc.collect()                         # phase 8's bf16 model goes first
+    torch.cuda.empty_cache()
+    rows += train_phase(device)
     torch.cuda.synchronize()
 
     print(smi, flush=True)

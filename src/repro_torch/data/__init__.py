@@ -1,3 +1,4 @@
-from .synth import star_schema
+from .synth import star_schema, token_corpus, zipf_tokens
+from .tokenstore import TokenStore
 
-__all__ = ["star_schema"]
+__all__ = ["TokenStore", "star_schema", "token_corpus", "zipf_tokens"]

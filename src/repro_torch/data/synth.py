@@ -1,14 +1,35 @@
-"""Synthetic star-schema data for the C-Store §8.1 query harness.
+"""Synthetic data generators: the star schema of the C-Store §8.1 query
+harness, and the Zipfian token corpus of the columnar token store.
 
-Mirrors ``star_schema`` of ``src/repro/data/synth.py`` verbatim (same
-seeded draws, so both packages load identical rows); the token corpus,
-meter data and token store belong to the LM-stack slice.
+Mirrors ``star_schema``, ``zipf_tokens`` and ``token_corpus`` of
+``src/repro/data/synth.py`` verbatim (same seeded draws, so both packages
+load identical rows); ``meter_data`` waits for the dry-run slice.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import numpy as np
+
+
+def zipf_tokens(rng: np.random.Generator, n: int, vocab: int,
+                alpha: float = 1.1) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    p /= p.sum()
+    return rng.choice(vocab, size=n, p=p).astype(np.int64)
+
+
+def token_corpus(n_docs: int, doc_len: int, vocab: int,
+                 seed: int = 0) -> Dict[str, np.ndarray]:
+    """(doc_id, pos, token) rows -- the token store's logical table."""
+    rng = np.random.default_rng(seed)
+    n = n_docs * doc_len
+    return {
+        "doc_id": np.repeat(np.arange(n_docs, dtype=np.int64), doc_len),
+        "pos": np.tile(np.arange(doc_len, dtype=np.int64), n_docs),
+        "token": zipf_tokens(rng, n, vocab),
+    }
 
 
 def star_schema(n_fact: int, n_dim: int, seed: int = 0

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("bitunpack", "seg_preagg", "rle_grouped_agg", "rle_filter_agg",
            "onehot_groupby", "semijoin_probe", "delta_decode",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -23,6 +23,22 @@ permuted views of its ``(B, S, heads, d)`` tensors and gets its output
 back in q's memory order, with no copy on either side.  Unlike the
 reference, S and T need not be multiples of a tile: the kernel masks
 ragged tiles.
+
+Training (the port's own addition; the reference's Pallas kernel has no
+backward and its model trains through ``attend``, which jax
+differentiates):
+
+* ``flash_attention_bwd``       -- dq, dk, dv from q, k, v, the forward's
+  output and its gradient: a CUDA kernel (csrc/flash_attention_bwd.cu,
+  two launches, no atomics, so a rerun is bit for bit the same) for CUDA
+  tensors, the plain version for CPU tensors.  The wrapper hands the
+  kernel contiguous copies of its five inputs (the model's permuted views
+  are not), grouped as (kv heads, G, rows, d).
+* ``flash_attention_bwd_plain`` -- the same recompute formulas in plain
+  PyTorch.
+* ``flash_attention_train``     -- a ``torch.autograd.Function``: forward
+  through ``flash_attention``, backward through ``flash_attention_bwd``.
+  Both are looked up in this module at call time.
 """
 from __future__ import annotations
 
@@ -34,7 +50,8 @@ import torch
 
 from . import build
 
-launches = 0    # kernel launches by ``flash_attention``
+launches = 0        # kernel launches by ``flash_attention``
+bwd_launches = 0    # kernel launches by ``flash_attention_bwd`` (2 a call)
 
 HEAD_DIMS = (64, 96, 128)       # the kernel's instantiations
 NEG_INF = -1e30
@@ -204,3 +221,142 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.is_cuda:
         return _launch(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal=causal)
+
+
+# ------------------------------------------------------------- backward --
+
+# flash_attention_bwd_launch(q, k, v, o, do, dq, dk, dv, scratch, n_kv, G,
+#                            S, T, D, causal, bf16, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
+
+
+def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` summed over the dims where ``shape`` has 1 and ``t`` more:
+    the gradient of a tensor that broadcast to ``t``'s shape."""
+    dims = [i for i, (n, m) in enumerate(zip(t.shape, shape))
+            if m == 1 and n != 1]
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True):
+    """Plain PyTorch version of the backward kernel, on any device: the
+    recompute formulas, in f32.  Scores s = q.k / sqrt(d) (masked at
+    -1e30), P = exp(s - logsumexp(s)), D = rowsum(dout * out), dP = dout
+    v^T, dS = P (dP - D); dq = dS k / sqrt(d), dk = dS^T q / sqrt(d), dv =
+    P^T dout, dk and dv summed over the leading dims k and v broadcast
+    over.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    dof = dout.to(torch.float32)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        S, T = s.shape[-2:]
+        mask = (torch.arange(S, device=s.device)[:, None]
+                >= torch.arange(T, device=s.device)[None, :])
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = (dof * out.to(torch.float32)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = _sum_to(torch.matmul(ds.transpose(-1, -2), qf) * scale, k.shape)
+    dv = _sum_to(torch.matmul(p.transpose(-1, -2), dof), v.shape)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_layout(q, k, v, out, dout):
+    """What the backward kernel reads: returns ((q, k, v, out, dout) as
+    contiguous copies, n_kv, G, inv).  q's leading dims are reordered with
+    those where k and v have their own entries first (size 1 in q counts
+    as such) and those they broadcast over last, so that the copies of q,
+    out and dout are (n_kv, G, S, d) in memory and those of k and v (n_kv,
+    T, d).  Gradients laid out as those copies go back to the inputs'
+    dim order with ``.permute(inv)``."""
+    q_lead, kv_lead = tuple(q.shape[:-2]), tuple(k.shape[:-2])
+    own = [i for i, (n, m) in enumerate(zip(q_lead, kv_lead)) if m == n]
+    shared = [i for i, (n, m) in enumerate(zip(q_lead, kv_lead)) if m != n]
+    nl = len(q_lead)
+    full = own + shared + [nl, nl + 1]
+    inv = [full.index(i) for i in range(nl + 2)]
+    copies = tuple(t.permute(full).contiguous() for t in (q, k, v, out, dout))
+    return (copies, math.prod(q_lead[i] for i in own),
+            math.prod(q_lead[i] for i in shared), inv)
+
+
+def _launch_bwd(q, k, v, out, dout, causal):
+    global bwd_launches
+    build.require_cuda("flash_attention_bwd", q, k, v, out, dout,
+                       dtypes=(q.dtype,) * 5, contiguous=False)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_bwd: {q.dtype}, expected float32 "
+                        f"or bfloat16")
+    S, d = q.shape[-2:]
+    T = k.shape[-2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d}, the kernel "
+                         f"takes {HEAD_DIMS}")
+    (qc, kc, vc, oc, doc), n_kv, G, inv = bwd_layout(q, k, v, out, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
+    if n_kv * G == 0 or S == 0:
+        return tuple(t.zero_().permute(inv) for t in (dq, dk, dv))
+    scratch = torch.empty(2 * n_kv * G * S, dtype=torch.float32,
+                          device=q.device)
+    fn = build.entry("flash_attention_bwd", "flash_attention_bwd_launch",
+                     _BWD_ARGTYPES)
+    build.check(fn(*(t.data_ptr() for t in (qc, kc, vc, oc, doc, dq, dk, dv,
+                                            scratch)),
+                   n_kv, G, S, T, d, int(causal),
+                   int(q.dtype == torch.bfloat16),
+                   build.stream_ptr(q.device)), "flash_attention_bwd")
+    bwd_launches += 2
+    return dq.permute(inv), dk.permute(inv), dv.permute(inv)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` for
+    the output gradient ``dout``, given the forward's output ``out``: q,
+    out, dout ``(..., S, d)``; k, v ``(..., T, d)``, broadcast over q's
+    leading dims (dk and dv come back with k's and v's shapes, summed over
+    the dims they broadcast over).  A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes the plain version."""
+    if q.shape != out.shape or q.shape != dout.shape or k.shape != v.shape \
+            or k.dim() != q.dim() or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[-2] == 0:
+        raise ValueError("flash_attention_bwd: no keys (T = 0)")
+    if any(n not in (m, 1) for n, m in zip(k.shape[:-2], q.shape[:-2])):
+        raise ValueError(f"flash_attention_bwd: kv leading dims "
+                         f"{tuple(k.shape[:-2])} do not broadcast to "
+                         f"{tuple(q.shape[:-2])}")
+    if q.is_cuda:
+        return _launch_bwd(q, k, v, out, dout, causal)
+    return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention whose forward is ``flash_attention`` and whose backward is
+    ``flash_attention_bwd``; it saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` with a gradient (the training path's
+    attention)."""
+    return FlashAttentionFn.apply(q, k, v, causal)

@@ -16,6 +16,9 @@ jnp), ``seg_preagg`` (the engine's dense GROUP BY), ``rle_grouped_agg``
 ``delta_decode``, which only this entry point reaches, as in the
 reference, and ``flash_attention``, which the port's LM prefill calls
 here for its causal self-attention (models/transformer.py).
+``flash_attention_bwd`` is the port's own kernel, the gradient of that
+forward, with no Pallas counterpart; ``flash_attention_train``, the
+autograd function over the two, is what the training path calls.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from .bitunpack import (Segment, bitunpack, bitunpack_plain,
                         bitunpack_segments, bitunpack_segments_plain,
                         gather_unpack)
 from .delta_decode import delta_decode, delta_decode_plain
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain,
+                              flash_attention_plain, flash_attention_train)
 from .hash_groupby import onehot_groupby, onehot_groupby_plain
 from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_plain,
                            rle_grouped_agg, rle_grouped_agg_many,
@@ -48,7 +53,8 @@ _COUNTED = {"bitunpack": (_bitunpack_mod, "launches"),
             "onehot_groupby": (_groupby_mod, "launches"),
             "semijoin_probe": (_sip_mod, "launches"),
             "delta_decode": (_delta_mod, "launches"),
-            "flash_attention": (_flash_mod, "launches")}
+            "flash_attention": (_flash_mod, "launches"),
+            "flash_attention_bwd": (_flash_mod, "bwd_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -64,7 +70,9 @@ def reset_launch_counts() -> None:
 
 __all__ = ["Segment", "bitunpack", "bitunpack_plain",
            "bitunpack_segments", "bitunpack_segments_plain", "delta_decode",
-           "delta_decode_plain", "flash_attention", "flash_attention_plain",
+           "delta_decode_plain", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
+           "flash_attention_train",
            "gather_unpack", "launch_counts", "onehot_groupby",
            "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
            "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_many",

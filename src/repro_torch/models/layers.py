@@ -10,11 +10,13 @@ it is a no-op there, and casting f32 master weights to bf16 once at load
 gives the same numbers as the reference's cast at every use.  The
 reference's ``shard_hint`` pins activations to a mesh; the port runs at
 tp = 1 on one device, where the hint is the identity, so it is left out.
-``softmax_xent`` waits for the training slice.
+The reference's ``Policy`` (a dtype pair that nothing in either package
+calls) is left out until a caller needs it.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -144,3 +146,15 @@ def logits_fn(p, x: torch.Tensor, vocab: int, tie: bool) -> torch.Tensor:
         mask = torch.arange(vp, device=logits.device) < vocab
         logits = torch.where(mask, logits, -1e9)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32. labels: (B,S) int32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -1,7 +1,9 @@
-"""build_model(cfg, tp, device=...): the entry point of the serving path.
+"""build_model(cfg, tp, device=...): the entry point of the training and
+serving paths.
 
 A Model bundles, for the decoder-only dense family:
   decls          -- parameter declarations (shapes + logical axes)
+  loss           -- (params, batch) -> scalar   [train]
   prefill        -- (params, batch, max_len) -> (last_logits, cache)
   decode_step    -- (params, cache, tokens, pos) -> (logits, cache)
   cache_decls    -- (batch, max_len) -> tree of (shape, axes, dtype)
@@ -12,10 +14,11 @@ Mirrors ``src/repro/models/model.py`` (``Model``, ``_attn_cache``,
 explicit device: ``init_params`` draws a parameter tree there and
 ``load_params`` checks one against the declarations and the device; the
 caller keeps the tree, and ``prefill`` and ``decode_step`` take it as an
-argument, as the reference's functions do.  The MoE, SSM, hybrid,
-audio and VLM families and the int8 KV cache (``kv_quant``) raise
-``NotImplementedError`` until their slices; training (``loss``) and the
-dry-run's ``input_specs`` wait for theirs.
+argument, as the reference's functions do.  ``loss`` takes f32 master
+weights (bf16 compute) and runs the decoder in train mode under the
+model's remat policy.  The MoE, SSM, hybrid, audio and VLM families and
+the int8 KV cache (``kv_quant``) raise ``NotImplementedError`` until
+their slices; the dry-run's ``input_specs`` waits for its.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
-from .layers import embed_lookup, logits_fn, rmsnorm
+from .layers import embed_lookup, logits_fn, rmsnorm, softmax_xent
 from .params import Decls, count_params, init_params, resolve_device
 from .transformer import CACHE_DTYPE, decoder_decls, run_decoder, segments
 
@@ -73,11 +76,13 @@ class Model(torch.nn.Module):
     """The decoder-only LM on ``device``: its declarations, and the
     functions that run a parameter tree held on that device."""
 
-    def __init__(self, cfg: ArchConfig, tp: int, device):
+    def __init__(self, cfg: ArchConfig, tp: int, device,
+                 remat: str = "minimal"):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
         self.device = device
+        self.remat = remat
         self.decls: Decls = decoder_decls(cfg, tp)
 
     @property
@@ -108,6 +113,21 @@ class Model(torch.nn.Module):
                         f"{self.device}")
         check(self.decls, tree, "")
         return tree
+
+    def loss(self, params, batch):
+        """Mean next-token cross entropy of ``batch`` (tokens, labels).  A
+        stacked segment of ``params`` may be a list of per-layer trees
+        (transformer.run_decoder)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        x = embed_lookup(params, tokens, CACHE_DTYPE)
+        x, _ = run_decoder(cfg, self.tp, params, x, mode="train",
+                           positions=_positions(B, S, x.device),
+                           remat_policy=self.remat)
+        x = rmsnorm(params["ln_f"], x)
+        logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
+        return softmax_xent(logits, labels)     # the dense family: no aux
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         cfg = self.cfg
@@ -146,11 +166,11 @@ class Model(torch.nn.Module):
         return out
 
 
-def build_model(cfg: ArchConfig, tp: int = 1, kv_quant: bool = False, *,
-                device="cuda") -> Model:
+def build_model(cfg: ArchConfig, tp: int = 1, remat: str = "minimal",
+                kv_quant: bool = False, *, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (CUDA unless the caller asks for
-    the CPU; CUDA without a GPU raises).  The reference's ``remat`` is a
-    training option and waits for the training slice."""
+    the CPU; CUDA without a GPU raises); ``remat`` is the training
+    path's recompute policy (minimal, dots or none)."""
     dev = resolve_device(device, "build_model")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
@@ -161,4 +181,6 @@ def build_model(cfg: ArchConfig, tp: int = 1, kv_quant: bool = False, *,
     # serving runs bf16 matmuls; state (for f32 callers) that f32 products
     # stay full f32, never TF32 (the H100's default, set explicitly)
     torch.backends.cuda.matmul.allow_tf32 = False
-    return Model(cfg, tp, dev)
+    if remat not in ("minimal", "dots", "none"):
+        raise ValueError(f"remat {remat!r}: minimal, dots or none")
+    return Model(cfg, tp, dev, remat)

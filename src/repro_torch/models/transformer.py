@@ -5,6 +5,7 @@ attention layers among sliding-window layers) are split into *segments* --
 unstacked singles and stacked runs -- so every stacked run is homogeneous.
 
 Modes:
+  train   -- full sequence, no cache, each block under the remat policy
   prefill -- full sequence, last-position logits + KV cache out
   decode  -- one token against the cache
 
@@ -18,16 +19,27 @@ replaces the reference's Pallas ``flash_attention``, where the reference
 computes the same function with ``attend``; windowed layers and decode
 take ``attend`` as in the reference.  The kernel keeps P.V in f32 where
 ``attend_full`` casts the probabilities to bf16 first: the two differ by
-about one bf16 ulp of the context.  MoE, SSM, hybrid and cross-attention
-blocks wait for their slices; ``mode="train"`` waits for the training
-slice.
+about one bf16 ulp of the context.  Training sends the same attention
+through ``kernels.ops.flash_attention_train`` (the forward kernel, and
+the port's backward kernel for its gradient).  The reference's remat
+policies (``_remat``) become ``torch.utils.checkpoint`` (non-reentrant,
+one block at a time): "minimal" saves only each block's input, "dots"
+saves the matmul outputs too, "none" recomputes nothing.  A stacked
+segment may also arrive as a list of per-layer trees: the training path
+hands the model per-layer leaves, since the gradient of a layer's view
+of a stacked leaf would allocate a zero tensor of the whole leaf for
+every layer.  MoE, SSM, hybrid and cross-attention blocks wait for their
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
@@ -114,6 +126,17 @@ def flash_prefill(q, k, v):
     return out.permute(0, 3, 1, 2, 4)
 
 
+def flash_train(q, k, v):
+    """``flash_prefill`` with a gradient: the same views through
+    ``ops.flash_attention_train``, whose backward hands back gradients of
+    the views' shapes."""
+    out = ops.flash_attention_train(q.permute(0, 2, 3, 1, 4),
+                                    k.permute(0, 2, 1, 3).unsqueeze(2),
+                                    v.permute(0, 2, 1, 3).unsqueeze(2),
+                                    causal=True)
+    return out.permute(0, 3, 1, 2, 4)
+
+
 def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
                  causal: bool = True, max_len: Optional[int] = None):
     """Self-attention on pre-normed h; returns (out, cache_out)."""
@@ -124,13 +147,15 @@ def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
         ctx = attn.attend_decode(q, ck, cv, pos, window)
         return ctx, {"k": ck, "v": cv}
     if causal and window is None:
-        # q and k share the prefill's positions, arange(S) (model.py), so
+        # q and k share the sequence's positions, arange(S) (model.py), so
         # the kernel's causal mask by index is the mask by position
-        ctx = flash_prefill(q, k, v)
+        ctx = (flash_train if mode == "train" else flash_prefill)(q, k, v)
     else:
         pos1d = positions[0]
         ctx = attn.attend(q, k, v, pos1d, pos1d, causal=causal,
                           window=window)
+    if mode == "train":
+        return ctx, None
     S = k.shape[1]
     cap = max_len or S
     if window:
@@ -169,7 +194,8 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
                                    cache=cache.get("attn"), pos=pos,
                                    causal=causal, max_len=max_len)
         x = x + attn.output_proj(p["attn"], ctx, layout)
-        cache_out["attn"] = c_attn
+        if mode != "train":
+            cache_out["attn"] = c_attn
     if cfg.d_ff:
         h = rmsnorm(p["ln2"], x)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp)
@@ -192,7 +218,9 @@ def decoder_decls(cfg: ArchConfig, tp: int) -> Decls:
 
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, so in-place cache writes reach
-    the stacked tensors)."""
+    the stacked tensors), or entry ``i`` of a list of per-layer trees."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -204,18 +232,51 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """jax's ``checkpoint_dots``: keep every matmul output, recompute the
+    rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(
+                           create_selective_checkpoint_contexts, _save_dots))
+    if policy != "minimal":
+        raise ValueError(f"remat policy {policy!r}: minimal, dots or none")
+    return partial(checkpoint, fn, use_reentrant=False)  # block boundaries
+
+
 def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
                 x: torch.Tensor, *, mode: str,
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[Dict[str, Any]] = None,
                 pos: Optional[int] = None, causal: bool = True,
-                max_len: Optional[int] = None):
+                max_len: Optional[int] = None,
+                remat_policy: str = "minimal"):
     """Run all segments. Returns (x, caches_out).  In decode the caches
-    are written in place and returned."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r}: the port serves "
-                                  f"(prefill, decode); training waits for "
-                                  f"its slice")
+    are written in place and returned; train returns no caches."""
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(f"mode={mode!r}: the port runs train, "
+                                  f"prefill and decode")
+    if mode == "train":
+        for seg in segments(cfg):
+            fn = partial(block_apply, cfg, tp, mode="train",
+                         window=seg.window, positions=positions,
+                         causal=causal)
+            body = _remat(lambda p, h, _fn=fn: _fn(p, h)[0], remat_policy)
+            p_seg = params[seg.name]
+            for i in range(seg.n_layers if seg.scanned else 1):
+                x = body(_layer(p_seg, i) if seg.scanned else p_seg, x)
+        return x, None
     caches = caches or {}
     caches_out: Dict[str, Any] = {}
     for seg in segments(cfg):

@@ -313,3 +313,115 @@ def test_bf16_bits_round_to_nearest():
     got = _bf16_bits(x)
     assert torch.equal(got[~tie], x[~tie].to(torch.bfloat16).float())
     assert torch.equal(got.to(torch.bfloat16).float(), got)
+
+
+# ------------------------------------------------------------- backward --
+# flash_attention_bwd has no Pallas counterpart (the reference trains
+# through attend, which jax differentiates); its plain version is held
+# against jax.vjp of the reference's oracle and against torch autograd of
+# flash_attention_plain, both with k and v expanded over the query group
+# and the group's gradients summed.  Tolerances: 1e-4 relative to the
+# largest gradient in f32 (summation order: the oracle's vjp and the
+# recompute formulas sum in different orders), 2e-2 in bf16 (one rounding
+# of each gradient; the inputs are the same bf16 numbers on both sides).
+
+def _ref_vjp(q, k, v, dout, causal):
+    """jax.vjp of ref.flash_attention_ref over q's leading dims, k and v
+    broadcast to them; dk, dv summed back to k's shape."""
+    lead = q.shape[:-2]
+    kb = np.broadcast_to(k, lead + k.shape[-2:])
+    vb = np.broadcast_to(v, lead + v.shape[-2:])
+    fn = lambda a, b, c: ref.flash_attention_ref(a, b, c, causal=causal)
+    for _ in range(len(lead)):
+        fn = jax.vmap(fn)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, kb, vb)))
+    dq, dk, dv = (np.asarray(g, np.float32) for g in vjp(jnp.asarray(dout)))
+    axes = tuple(i for i, (n, m) in enumerate(zip(lead, k.shape[:-2]))
+                 if m == 1 and n != 1)
+    return dq, dk.sum(axes, keepdims=True), dv.sum(axes, keepdims=True)
+
+
+BWD_CASES = [((64, 16), (64, 16), True), ((37, 16), (53, 16), True),
+             ((37, 16), (53, 16), False), ((2, 3, 4, 29, 32),
+                                           (2, 3, 1, 29, 32), True),
+             ((2, 4, 21, 16), (1, 4, 21, 16), False)]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_plain_matches_reference_vjp(shape_q, shape_kv,
+                                                         causal, dtype):
+    (q, k, v), (tq, tk, tv), _ = _inputs(shape_q, shape_kv, dtype, 11)
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    dout = np.asarray(jnp.asarray(rng.normal(size=shape_q), jdt))
+    tdo = tensor_from_numpy(dout, "cpu")
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    got = ops.flash_attention_bwd(tq, tk, tv, out, tdo, causal=causal)
+    want = _ref_vjp(q, k, v, dout, causal)
+    # torch autograd of the plain forward, in float64
+    t64 = [t.to(torch.float64).requires_grad_() for t in (tq, tk, tv)]
+    o64 = ops.flash_attention_plain(*t64, causal=causal)
+    auto = torch.autograd.grad(o64, t64, tdo.to(torch.float64))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, w, a, t in zip(got, want, auto, (tq, tk, tv)):
+        assert g.dtype == tdt and g.shape == t.shape
+        scale = max(float(np.abs(w).max()), 1.0)
+        g32 = g.to(torch.float32).numpy()
+        np.testing.assert_allclose(g32, w, rtol=0, atol=tol * scale)
+        np.testing.assert_allclose(g32, a.numpy(), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_train_gradients_are_the_plain_autograd(causal):
+    """The autograd function (forward kernel, backward kernel) on the
+    model's permuted views gives the gradients torch autograd gives the
+    plain forward, in the inputs' shapes."""
+    rng = np.random.default_rng(3)
+    B, S, K, G, H = 2, 45, 2, 3, 16
+    q0 = torch.as_tensor(rng.normal(size=(B, S, K, G, H)), dtype=torch.float32)
+    k0 = torch.as_tensor(rng.normal(size=(B, S, K, H)), dtype=torch.float32)
+    v0 = torch.as_tensor(rng.normal(size=(B, S, K, H)), dtype=torch.float32)
+    dout = torch.as_tensor(rng.normal(size=(B, K, G, S, H)),
+                           dtype=torch.float32)
+    views = lambda q, k, v: (q.permute(0, 2, 3, 1, 4),
+                             k.permute(0, 2, 1, 3).unsqueeze(2),
+                             v.permute(0, 2, 1, 3).unsqueeze(2))
+    a = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    ops.flash_attention_train(*views(*a), causal=causal).backward(dout)
+    b = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    ops.flash_attention_plain(*views(*b), causal=causal).backward(dout)
+    for x, y in zip(a, b):
+        assert x.grad.shape == y.grad.shape
+        np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape_q,shape_kv", [
+    ((2, 8, 4, 33, 16), (2, 8, 1, 33, 16)),     # the model's views
+    ((2, 3, 4, 9, 16), (2, 1, 4, 9, 16)),       # k shared over a middle dim
+    ((4, 9, 16), (1, 9, 16)), ((1, 5, 9, 16), (1, 5, 9, 16))])
+def test_flash_attention_bwd_kernel_layout(shape_q, shape_kv):
+    """``bwd_layout``, the CUDA wrapper's reordering: the plain backward
+    run on the kernel's (n_kv, G, S, d) / (n_kv, 1, T, d) copies and put
+    back with ``inv`` equals the plain backward on the inputs."""
+    from repro_torch.kernels.flash_attention import bwd_layout
+    rng = np.random.default_rng(1)
+    q, out, dout = (torch.as_tensor(rng.normal(size=shape_q),
+                                    dtype=torch.float32) for _ in range(3))
+    k, v = (torch.as_tensor(rng.normal(size=shape_kv), dtype=torch.float32)
+            for _ in range(2))
+    (qc, kc, vc, oc, doc), n_kv, G, inv = bwd_layout(q, k, v, out, dout)
+    S, T, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    assert all(t.is_contiguous() for t in (qc, kc, vc, oc, doc))
+    grads = ops.flash_attention_bwd_plain(
+        qc.view(n_kv, G, S, d), kc.view(n_kv, 1, T, d),
+        vc.view(n_kv, 1, T, d), oc.view(n_kv, G, S, d),
+        doc.view(n_kv, G, S, d))
+    back = [g.view(c.shape).permute(inv)
+            for g, c in zip(grads, (qc, kc, vc))]
+    want = ops.flash_attention_bwd_plain(q, k, v, out, dout)
+    for b, w in zip(back, want):
+        assert b.shape == w.shape
+        np.testing.assert_allclose(b.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)

@@ -33,14 +33,20 @@ def test_importing_every_module_leaves_out_jax_and_repro():
     assert bad == "[]", bad
     expected = {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}
-    assert int(n) == len(expected) >= 68
+    assert int(n) == len(expected) >= 76
     for name in ("repro_torch.distributed", "repro_torch.distributed.mesh",
                  "repro_torch.engine.segmented",
                  "repro_torch.engine.exchange",
                  "repro_torch.engine.executor",
                  "repro_torch.engine.serving",
                  "repro_torch.core.recovery",
-                 "repro_torch.planner.designer"):
+                 "repro_torch.planner.designer",
+                 "repro_torch.train", "repro_torch.train.optim",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.fault_tolerance",
+                 "repro_torch.train.tree", "repro_torch.data.tokenstore",
+                 "repro_torch.launch.train"):
         assert name in expected, name
 
 
@@ -79,10 +85,13 @@ def test_kernel_wrappers_count_only_their_launches():
     ops.delta_decode(torch.zeros((1, 1), dtype=torch.int32), runs)
     q = torch.zeros((1, 2, 5, 64))
     ops.flash_attention(q, q[:, :1], q[:, :1])
+    ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)
+    ops.flash_attention_train(q.requires_grad_(), q[:, :1], q[:, :1]).sum() \
+        .backward()
     assert ops.launch_counts() == {
         "bitunpack": 0, "seg_preagg": 0, "rle_grouped_agg": 0,
         "rle_filter_agg": 0, "onehot_groupby": 0, "semijoin_probe": 0,
-        "delta_decode": 0, "flash_attention": 0}
+        "delta_decode": 0, "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def test_lm_entry_points_without_a_gpu_raise_and_run_on_the_cpu():
@@ -105,3 +114,19 @@ def test_lm_entry_points_without_a_gpu_raise_and_run_on_the_cpu():
     gen = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len",
                       "8", "--tokens", "3"])
     assert gen.tokens.shape == (2, 3) and gen.decode_steps == 2
+
+
+def test_training_entry_points_without_a_gpu_raise():
+    from repro_torch.launch import train
+    from repro_torch.train.train_step import init_train_state
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal needs none")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])                 # the default device
+    assert not torch.are_deterministic_algorithms_enabled()
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    model = build_model(configs.get("qwen3-4b").reduced(), device="cpu")
+    state = init_train_state(model, seed=0)
+    assert state["params"]["embedding"].dtype == torch.float32
+    assert int(state["opt"].step) == 0

@@ -397,8 +397,11 @@ def test_families_not_yet_ported_raise():
                     device="cpu")
     model = build_model(configs.get("qwen3-4b").reduced(), device="cpu")
     from repro_torch.models.transformer import run_decoder
-    with pytest.raises(NotImplementedError, match="train"):
-        run_decoder(model.cfg, 1, {}, torch.zeros(1, 1, 64), mode="train")
+    with pytest.raises(NotImplementedError, match="mode='sample'"):
+        run_decoder(model.cfg, 1, {}, torch.zeros(1, 1, 64), mode="sample")
+    with pytest.raises(ValueError, match="remat"):
+        build_model(configs.get("qwen3-4b").reduced(), remat="all",
+                    device="cpu")
 
 
 def test_init_params_is_seeded_per_path():
