@@ -88,7 +88,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
    ``run_tuple_mover(force_moveout=True)``, all against the oracle;
 8. the LM serving path (the database is freed first): the bf16 flash
    kernels' machine code must hold warpgroup MMAs (``[sass]`` lines:
-   HGMMA counted by ``cuobjdump``); then qwen3-4b at its
+   HGMMA and FFMA counted by ``cuobjdump`` per kernel, in the forward's
+   library, whose 4 bf16 kernels -- head dims padded to 64 and 128, with
+   and without the lse store -- must hold HGMMA, and the backward's, whose
+   every bf16 kernel -- dq and dk/dv at the two paddings -- must hold
+   HGMMA, and whose other kernels are the f32 ones); then qwen3-4b at
+   its
    published width (36 layers, 4.02e9 parameters) built on the card in
    bf16 from seed 0, then, with the counters zeroed just before and read
    just after, ``serve.generate`` on 4 prompts of 512 tokens (ids from
@@ -152,13 +157,20 @@ Phases, one line each (any failure raises and the script exits non-zero):
    seg_preagg is held as in phase 4 on the shared members' inputs (JSON
    rows named ``serve-..``).
 11. training (``train_phase``, last; phase 8's model is freed first):
-   a. ``flash_attention_bwd`` (the port's own kernel: the gradient of the
-   forward, which has no Pallas backward) against float64 autograd of
-   ``flash_attention_plain`` on the model's permuted views: bf16 and f32,
-   head dims 64/96/128, causal and not, G = 1 and 4, S = 300, and S != T
-   both ways (130 x 200 causal, 200 x 70 not); max |err| of dq, dk, dv
-   within ``BWD_TOL`` times max(1, max |want|), the plain backward's gap
-   printed beside it, and a second launch bit for bit the first;
+   a. the forward kernels' lse (``return_lse=True``, what training
+   saves) against ``flash_attention_plain``'s in bf16 and f32, within
+   ``LSE_TOL`` times max(1, max |lse|), the output bit for bit the one
+   without lse; one traced ``flash_attention_bwd`` call on the model's
+   views must hold exactly its two kernels (no copy, no elementwise
+   kernel); then ``flash_attention_bwd`` (the port's own kernel: the
+   gradient of the forward, which has no Pallas backward), given the
+   forward's lse, against float64 autograd of ``flash_attention_plain``
+   on the model's permuted views: bf16 and f32, head dims 64/96/128,
+   causal and not, G = 1 and 4, S = 300, S != T both ways (130 x 200
+   causal, 200 x 70 not), and the training shapes 4 x 512 and 1 x 4096;
+   max |err| of dq, dk, dv within ``BWD_TOL`` times max(1, max |want|),
+   the plain backward's gap printed beside it, and a second launch bit
+   for bit the first;
    c. qwen3-4b at full width and depth with f32 master weights, bf16
    compute and remat "minimal", 4 x 512 tokens a step from a port
    ``TokenStore`` pinned at its data epoch: one step's loss and global
@@ -168,8 +180,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    layers x 2 with the recompute, ``flash_attention_bwd`` 72 = 36 calls
    x 2 launches, nothing else); then 5 AdamW steps, each with those
    launches and a finite loss (``[train]`` lines: step ms, tokens/s),
-   the peak ``max_memory_allocated`` of the steps and the device busy
-   share of one profiled step;
+   the peak ``max_memory_allocated`` of the steps, and of one profiled
+   step the device busy share, the kernel ms and the backward kernels'
+   ms and share of them;
    b. two ``flash_attention_bwd`` JSON rows at phase 8's shapes (event
    and device ms, bound, plain ms, SDPA's backward alone with kv
    expanded as ``library_ms``, and the launches of one training step);
@@ -205,6 +218,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2920,24 +2934,34 @@ def _flash_row(q, k, v, causal, launches, stats, shape):
 
 def flash_sass() -> None:
     """The bf16 flash kernels' machine code holds tensor-core products:
-    ``cuobjdump --dump-sass`` of the built library, HGMMA (warpgroup MMA)
-    counted per sm90 instantiation; raises if one has none."""
+    ``cuobjdump --dump-sass`` of the forward's and the backward's
+    libraries, HGMMA (warpgroup MMA) and FFMA counted per kernel; raises
+    unless every sm90 instantiation (the forward's at 2 head-dim
+    paddings, with and without the lse store; the backward's dq and
+    dk/dv at 2 paddings) holds HGMMA and the backward's library has no
+    other kernel than its f32 ones."""
     from pathlib import Path
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "--dump-sass",
-                           str(build._lib_path("flash_attention"))],
-                          capture_output=True, text=True, check=True).stdout
-    funcs = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        if "flash_attention_kernel_sm90" in name:
+    for lib, n_sm90 in (("flash_attention", 4), ("flash_attention_bwd", 4)):
+        sass = subprocess.run([str(tool), "--dump-sass",
+                               str(build._lib_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        for part in sass.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
             funcs[name] = (part.count("HGMMA"), part.count("FFMA"))
-    for name, (hgmma, ffma) in sorted(funcs.items()):
-        _say("sass", kernel=name, hgmma=hgmma, ffma=ffma)
-    if len(funcs) != 2 or not all(h for h, _ in funcs.values()):
-        raise AssertionError(f"flash_attention sm90 kernels without HGMMA: "
-                             f"{funcs}")
+        for name, (hgmma, ffma) in sorted(funcs.items()):
+            _say("sass", library=lib, kernel=name, hgmma=hgmma, ffma=ffma)
+        sm90 = {n: h for n, (h, _) in funcs.items() if "sm90" in n}
+        others = [n for n in funcs if "sm90" not in n]
+        if len(sm90) != n_sm90 or not all(sm90.values()) or (
+                lib == "flash_attention_bwd"
+                and not all("f32" in n for n in others)):
+            raise AssertionError(f"{lib}: sm90 kernels {sm90} (expected "
+                                 f"{n_sm90}, each with HGMMA), others "
+                                 f"{others}")
 
 
 def lm_phase(device):
@@ -3129,6 +3153,10 @@ def lm_phase(device):
 # holds it to the same bf16 limit against the plain backward at the
 # training path's shapes
 BWD_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+# the forward kernels' lse against the plain version's, times max(1, max
+# |lse|): f32 sums in another order and ex2.approx (relative 2^-22) on
+# scores of a few units
+LSE_TOL = 1e-4
 # phase 11c: one step's loss (nats) and global grad norm (relative), the
 # kernels' route against the plain versions': the two attentions differ
 # by an f32 rounding, which bf16 activations carry through 36 layers.
@@ -3172,15 +3200,88 @@ def _attention64(q, k, v, causal: bool):
     return torch.matmul(torch.softmax(s, dim=-1), v)
 
 
-def flash_bwd_checks(device) -> None:
-    """Phase 11a: ``flash_attention_bwd`` on the card against float64
-    autograd of the attention, with the plain backward's gap printed
-    beside it, and bit for bit against its own second launch.  The last
-    two cases are the training path's own (qwen3-4b: 8 kv heads of 4 q
-    heads, d 128) at 4 x 512 and 1 x 4096."""
+def flash_lse_checks(device) -> None:
+    """Phase 11a: the forward kernels' lse (bf16 tensor-core and f32
+    scalar kernels) against the plain version's, on the model's views;
+    the output with lse asked for is bit for bit the one without."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
+    cfg = configs.get(LM_ARCH)
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device=device).manual_seed(13)
+    for name, (B, S, K_, G_, d_), T, dt, causal in (
+            (f"bfloat16_train_{LM_SERVE[0]}x{LM_SERVE[1]}",
+             (LM_SERVE[0], LM_SERVE[1], K, G, d), LM_SERVE[1], "bfloat16",
+             True),
+            ("bfloat16_d64_full_S300_T200", (2, 300, 2, 4, 64), 200,
+             "bfloat16", False),
+            ("bfloat16_d96_causal_S130", (1, 130, 2, 4, 96), 130,
+             "bfloat16", True),
+            ("float32_d128_causal_S300", (2, 300, 2, 4, 128), 300,
+             "float32", True),
+            ("float32_d64_full_S130_T200", (1, 130, 2, 4, 64), 200,
+             "float32", False)):
+        tdt = getattr(torch, dt)
+        q, _, _ = _model_views(B, S, K_, G_, d_, tdt, g, device)
+        _, k, v = _model_views(B, T, K_, 1, d_, tdt, g, device)
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+        _, want = ops.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+        same = torch.equal(out, ops.flash_attention(q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        err = float((lse - want).abs().max())
+        limit = LSE_TOL * max(1.0, float(want.abs().max()))
+        _say("check", kernel="flash_attention", lse=name,
+             max_abs_err=f"{err:.3g}", limit=f"{limit:.3g}",
+             out_bit_identical=same)
+        if not (same and torch.isfinite(lse).all() and err <= limit):
+            raise AssertionError(f"flash_attention lse {name}: max |err| "
+                                 f"{err} (limit {limit}), output "
+                                 f"identical {same}")
+
+
+def flash_bwd_trace(device) -> None:
+    """Phase 11a: one traced ``flash_attention_bwd`` call on the model's
+    views (4 x 512, bf16) holds exactly the backward's two kernels: the
+    inputs go to them as they are, with no copy or elementwise kernel."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    cfg = configs.get(LM_ARCH)
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device=device).manual_seed(14)
+    q, k, v = _model_views(*LM_SERVE[:2], K, G, d, torch.bfloat16, g, device)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device=device).to(
+        torch.bfloat16)
+    names = [e.name for e in _device_events(_traced(
+        lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse), 1))]
+    short = [(re.search(r"flash_attention_bwd_\w+<\d+>", n) or
+              re.search(r"\S+", n)).group(0) for n in names]
+    _say("check", kernel="flash_attention_bwd",
+         traced_kernels=json.dumps(short, separators=(",", ":")))
+    if len(names) != 2 or not all("flash_attention_bwd_" in n and "sm90" in n
+                                  for n in names):
+        raise AssertionError(f"one flash_attention_bwd call launched "
+                             f"{names}, expected its two sm90 kernels")
+
+
+def flash_bwd_checks(device) -> None:
+    """Phase 11a: ``flash_attention_bwd`` on the card, given the
+    forward's lse, against float64 autograd of the attention, with the
+    plain backward's gap printed beside it, and bit for bit against its
+    own second launch.  The last two cases are the training path's own
+    (qwen3-4b: 8 kv heads of 4 q heads, d 128) at 4 x 512 and 1 x
+    4096."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    flash_lse_checks(device)
+    flash_bwd_trace(device)
     g = torch.Generator(device=device).manual_seed(11)
     cases = [(f"{dt}_d{d}_{'causal' if c else 'full'}_G{G}_S300",
               (2, 300, 2, G, d), 300, dt, c)
@@ -3200,11 +3301,13 @@ def flash_bwd_checks(device) -> None:
         tdt = getattr(torch, dt)
         q, _, _ = _model_views(B, S, K, G, d, tdt, g, device)
         _, k, v = _model_views(B, T, K, 1, d, tdt, g, device)
-        out = ops.flash_attention(q, k, v, causal=causal)
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
         dout = torch.randn(out.shape, generator=g, device=device).to(tdt)
-        got = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-        again = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-        plain = ops.flash_attention_bwd_plain(q, k, v, out, dout,
+        got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+        again = ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                        causal=causal)
+        plain = ops.flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                               causal=causal)
         x64 = [t.detach().to(torch.float64).requires_grad_()
                for t in (q, k, v)]
@@ -3250,11 +3353,11 @@ def flash_bwd_row(shape, launches, device) -> dict:
         cfg.resolved_head_dim
     g = torch.Generator(device=device).manual_seed(12)
     q, k, v = _model_views(B, S, K, G, d, torch.bfloat16, g, device)
-    out = ops.flash_attention(q, k, v)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
     dout = torch.randn(out.shape, generator=g, device=device).to(
         torch.bfloat16)
-    fn = lambda: ops.flash_attention_bwd(q, k, v, out, dout)
-    plain = lambda: ops.flash_attention_bwd_plain(q, k, v, out, dout)
+    fn = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse)
+    plain = lambda: ops.flash_attention_bwd_plain(q, k, v, out, dout, lse)
     # dq, dk, dv each within phase 11a's bf16 limit of the plain backward
     errs, limits = [], []
     for a, b in zip(fn(), plain()):
@@ -3262,8 +3365,9 @@ def flash_bwd_row(shape, launches, device) -> dict:
         limits.append(BWD_TOL["bfloat16"] * max(1.0, float(
             b.float().abs().max())))
     err = max(errs)
-    # q, out, dout, dq; k, v, dk, dv; the gradient's five products
+    # q, out, dout, dq; k, v, dk, dv; lse; the gradient's five products
     nbytes, flops = _flash_work(q, k, True, tensors=4, flops_per_d=10)
+    nbytes += lse.numel() * lse.element_size()
     by_bytes = _bound_ms(nbytes)
     by_ops = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(by_bytes, by_ops)
@@ -3311,8 +3415,9 @@ def _plain_attention():
     the module at call time); returns the undo."""
     from repro_torch.kernels import flash_attention as fa
     saved = fa.flash_attention, fa.flash_attention_bwd
-    fa.flash_attention = lambda q, k, v, causal=True, **kw: \
-        fa.flash_attention_plain(q, k, v, causal=causal)
+    fa.flash_attention = lambda q, k, v, causal=True, return_lse=False, \
+        **kw: fa.flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=return_lse)
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
 
     def undo():
@@ -3453,6 +3558,8 @@ def train_full_width(device) -> dict:
     host_ms = float(np.median(times[1:])) * 1e3
     flash_ms = sum(v for k, v in kern.items()
                    if "flash_attention" in k) / 1e3
+    bwd_ms = sum(v for k, v in kern.items()
+                 if "flash_attention_bwd" in k) / 1e3
     top = sorted(kern, key=kern.get, reverse=True)[:6]
     _say("train", summary=cfg.name, steps=TRAIN_STEPS,
          step_ms_median=f"{host_ms:.3f}",
@@ -3461,7 +3568,9 @@ def train_full_width(device) -> dict:
          max_memory_allocated_gib=f"{peak / 2**30:.3f}",
          profiled_kernel_ms=f"{dev_ms:.3f}",
          busy_share=f"{dev_ms / host_ms:.4f}",
-         flash_kernel_ms=f"{flash_ms:.3f}", kernels=len(kern),
+         flash_kernel_ms=f"{flash_ms:.3f}",
+         flash_bwd_kernel_ms=f"{bwd_ms:.3f}",
+         flash_bwd_share=f"{bwd_ms / dev_ms:.4f}", kernels=len(kern),
          top=json.dumps({k.replace(" ", "_")[:72]: round(kern[k] / 1e3, 3)
                          for k in top}, separators=(",", ":")))
     _say("launches", path="train", **want)

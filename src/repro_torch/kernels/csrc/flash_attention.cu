@@ -26,8 +26,8 @@
 // attention through the maps), and while one consumer warpgroup runs its
 // softmax the other's products can use the tensor cores.
 //
-// bf16 design (flash_attention_kernel_sm90<DP>, DP = the head dim padded
-// to 64 or 128):
+// bf16 design (flash_attention_kernel_sm90<DP, kLse>, DP = the head dim
+// padded to 64 or 128):
 // * CTA: 384 threads.  Warpgroup 0 is the producer: one thread issues
 //   every TMA load, and the warpgroup gives its registers up (setmaxnreg
 //   24).  Warpgroups 1 and 2 are consumers of 64 query rows each (240
@@ -66,7 +66,15 @@
 //   dim of k or v has size 1 and coordinate 0), so the model passes views
 //   and nothing is copied.  cuTensorMapEncodeTiled comes through
 //   cudaGetDriverEntryPoint, so the library needs no -lcuda.  The output
-//   is stored from registers through its strides.
+//   is stored from registers through its strides.  The Hopper helpers
+//   (mbarriers, TMA, descriptors, wgmma forms, maps) live in sm90.cuh,
+//   shared with the backward.
+// * lse: given a pointer (training), each row's logsumexp of its scaled
+//   scores, m / sqrt(d) + ln(l), is stored from the registers that hold m
+//   and l: one f32 per row, for the backward (csrc/flash_attention_bwd.cu).
+//   That store is a second instantiation (kLse): compiled into the one
+//   kernel, it cost the prefill, which passes null, 5-6 % at 1 x 4096
+//   (PERF.md), so prefill runs the kernel without it.
 //
 // f32 design (flash_attention_kernel<D>): one CTA of 256 threads takes
 // 64 query rows of one head; 4 threads share a row, each holding a
@@ -75,11 +83,12 @@
 // takes its 32 scores (partial dots joined by two xor shuffles), rescales
 // its running max, normaliser and accumulator once, then adds P.V.
 // Every tensor is read through its strides (k and v: stride 0 where they
-// broadcast).
+// broadcast); lse, when asked for, is m + ln(l) of the scaled scores.
 #include <cstdint>
-#include <cuda.h>          // CUtensorMap and its enums; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"   // mbarriers, TMA, wgmma descriptors and forms, maps
 
 // ------------------------------------------------------ f32: CUDA cores --
 
@@ -109,7 +118,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       const Layout lay, int S, int n_keys,
+                       float* __restrict__ lse, const Layout lay, int S,
+                       int n_keys,
                        int n_qtiles, int causal, float sqrt_d) {
   constexpr int kVec = D / 4;             // float4 per row
   constexpr int kGroups = kVec / kLanes;  // float4 per thread
@@ -198,6 +208,8 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 
   if (s < S) {
+    // the four lanes of a row hold the same m and l
+    if (lse != nullptr && lane == 0) lse[n * S + s] = m + logf(l);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* op = out + i0 * lay.o[0] + i1 * lay.o[1] + i2 * lay.o[2] +
                 s * lay.o[3];
@@ -211,30 +223,32 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 static void launch_f32(const float* qq, const float* kk, const float* vv,
-                       float* oo, const Layout& lay, long long n_q, int S,
+                       float* oo, float* lse, const Layout& lay,
+                       long long n_q, int S,
                        int n_keys, int D, int causal, cudaStream_t stream) {
   const int n_qtiles = (S + kBQ - 1) / kBQ;
   const dim3 grid((unsigned)(n_q * n_qtiles));
   const float sqrt_d = sqrtf((float)D);
   if (D == 64)
     flash_attention_kernel<64><<<grid, kThreads, 0, stream>>>(
-        qq, kk, vv, oo, lay, S, n_keys, n_qtiles, causal, sqrt_d);
+        qq, kk, vv, oo, lse, lay, S, n_keys, n_qtiles, causal, sqrt_d);
   else if (D == 96)
     flash_attention_kernel<96><<<grid, kThreads, 0, stream>>>(
-        qq, kk, vv, oo, lay, S, n_keys, n_qtiles, causal, sqrt_d);
+        qq, kk, vv, oo, lse, lay, S, n_keys, n_qtiles, causal, sqrt_d);
   else
     flash_attention_kernel<128><<<grid, kThreads, 0, stream>>>(
-        qq, kk, vv, oo, lay, S, n_keys, n_qtiles, causal, sqrt_d);
+        qq, kk, vv, oo, lse, lay, S, n_keys, n_qtiles, causal, sqrt_d);
 }
 
 // dims: the leading sizes (n0, n1, n2); strides: 16 element strides, for
 // q, k, v and out in turn those of leading dims 0-2 and of the row dim (k
 // and v 0 where they broadcast): q and out (n0, n1, n2, S, D), k and v
-// (n0, n1, n2, n_keys, D) as broadcast.  D in {64, 96, 128}; every stride
-// a multiple of 4 and every pointer 16-byte aligned; float tensors.
-// Returns cudaGetLastError().
+// (n0, n1, n2, n_keys, D) as broadcast.  lse: null, or (n0, n1, n2, S)
+// contiguous f32 for each row's logsumexp (natural log) of its scaled
+// scores.  D in {64, 96, 128}; every stride a multiple of 4 and every
+// pointer 16-byte aligned; float tensors.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out,
+                                      const void* v, void* out, float* lse,
                                       const long long* dims,
                                       const long long* strides, int S,
                                       int n_keys, int D, int causal,
@@ -261,7 +275,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     lay.o[i] = strides[12 + i];
   }
   launch_f32((const float*)q, (const float*)k, (const float*)v, (float*)out,
-             lay, n_q, S, n_keys, D, causal, (cudaStream_t)stream);
+             lse, lay, n_q, S, n_keys, D, causal, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -272,7 +286,6 @@ constexpr int kBQ = 128;                  // query rows per CTA (2 x 64)
 constexpr int kBK = 128;                  // keys per K/V tile
 constexpr int kStages = 2;                // K/V tiles in flight
 constexpr int kThreads = 384;             // producer + 2 consumer warpgroups
-constexpr int kSlab = 64;                 // bf16 columns per 128-byte row
 constexpr int kTileBytes = kBK * kSlab * 2;   // one slab of 128 rows: 16 KB
 
 // What the kernel needs beyond the tensor maps: the leading index's sizes
@@ -283,150 +296,8 @@ struct Args {
   int qi[3], ki[3], vi[3];                // leading dims 0-2: 1 if indexed
   long long o[4];                         // out: leading dims 0-2, rows
   float scale_log2;                       // log2(e) / sqrt(D)
+  float* lse;                             // null, or (n_q, S) f32
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Blocks until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}"
-                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-}
-
-// One box of a 5-dim map (d, rows, leading dims 2, 1, 0) into shared
-// memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map,
-                                         uint64_t* bar, void* dst, int col,
-                                         int row, const int (&lead)[3]) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
-         "r"(col), "r"(row), "r"(lead[2]), "r"(lead[1]), "r"(lead[0])
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (given in bytes, held in
-// 16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pins registers in place across an asynchronous wgmma: the compiler may
-// neither read an accumulator before wg_wait nor reuse an A fragment's
-// registers while the product still reads them.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define F4(i) "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
-#define F16(i) F4(i), F4((i) + 4), F4((i) + 8), F4((i) + 12)
-#define R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
-    "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-    "%28, %29, %30, %31"
-#define R64 R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
-    "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
-    "%57, %58, %59, %60, %61, %62, %63"
-
-// d (64 x 128 f32) = or += A (64 x 16, shared) B^T (128 x 16, shared).
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-               " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-               R64 "}, %64, %65, p, 1, 1, 0, 0;\n}"
-               : F16(0), F16(16), F16(32), F16(48)
-               : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x N f32) += A (64 x 16, registers) B (16 x N, shared, N-major).
-__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t* a,
-                                       uint64_t b) {
-  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-               " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-               R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-               : F16(0), F16(16), F16(32), F16(48)
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-                 "r"(1));
-}
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
-                                       uint64_t b) {
-  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-               " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-               R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-               : F16(0), F16(16)
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-                 "r"(1));
-}
-#undef F4
-#undef F16
-#undef R32
-#undef R64
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of one tile, issued and not waited for: DP / 16 steps of 16
-// columns, Q (64 rows) and K (kBK rows) K-major in shared memory.
-template <int DP>
-__device__ __forceinline__ void issue_s(float (&sc)[64], const uint8_t* sq,
-                                        const uint8_t* sk) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int off = (kk / 4) * kTileBytes + (kk % 4) * 32;
-    mma_ss_n128(sc, desc_sw128(sq + off, 16, 1024),
-                desc_sw128(sk + off, 16, 1024), kk > 0);
-  }
-}
 
 // The online softmax of one tile of scores, in place: mask, the running
 // max m of the raw scores (alpha: its rescale factor) and P = exp2((S - m)
@@ -487,7 +358,7 @@ __device__ __forceinline__ void split_p(const float (&p)[64],
   }
 }
 
-template <int DP>
+template <int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -521,8 +392,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -574,7 +444,8 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
       const int s = j % kStages;
       mbar_wait(&full[s], (j / kStages) & 1);
       wg_fence();
-      issue_s<DP>(sc, sqw, sk + s * kStageBytes);
+      // S = Q K^T: DP / 16 steps, Q (64 rows) and K (kBK) K-major
+      issue_ss<DP>(sc, sqw, kTileBytes, sk + s * kStageBytes, kTileBytes);
       wg_commit();
       wg_wait();
       pin(sc);
@@ -601,11 +472,17 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
       mbar_arrive(&empty[s]);
     }
 
-    // normalise and store rows below S, columns below D
+    // normalise and store rows below S, columns below D; lse = m / sqrt(d)
+    // + ln(l) from the raw-score max and the base-2 sum: (m log2(e) /
+    // sqrt(d) + log2(l)) ln(2), written by the first of a row's 4 lanes
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = r + 8 * h;
+      if (kLse && lane % 4 == 0 && row < a.S)
+        a.lse[(long long)n * a.S + row] =
+            fmaf(m[h], a.scale_log2, log2f(l[h])) * 0.6931471805599453f;
       l[h] = 1.f / l[h];
     }
     const long long base = lead[0] * a.o[0] + lead[1] * a.o[1] +
@@ -622,51 +499,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime, so the
-// library links against nothing but cudart.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A bf16 map of dims (d, rows, leading 2, 1, 0) with byte strides of the
-// four outer dims, read in boxes of 64 columns x 128 rows, 128-byte swizzle,
-// zero fill out of bounds.
-static bool make_map(CUtensorMap* map, const void* ptr,
-                     const long long* dims, const long long* strides) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[5], gstride[4];
-  for (int i = 0; i < 5; ++i) gdim[i] = (cuuint64_t)dims[i];
-  for (int i = 0; i < 4; ++i) gstride[i] = (cuuint64_t)strides[i];
-  const cuuint32_t box[5] = {kSlab, kBK, 1, 1, 1};
-  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
-            gdim, gstride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int DP>
+template <int DP, bool kLse>
 static int launch(const CUtensorMap* maps, void* out, const Args& a,
                   cudaStream_t stream) {
   constexpr int kSmem = 1024 + (1 + 2 * kStages) * (DP / kSlab) * kTileBytes +
@@ -674,12 +507,12 @@ static int launch(const CUtensorMap* maps, void* out, const Args& a,
   static bool sized = false;           // raise the dynamic shared limit once
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel_sm90<DP>,
+        flash_attention_kernel_sm90<DP, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  flash_attention_kernel_sm90<DP>
+  flash_attention_kernel_sm90<DP, kLse>
       <<<(unsigned)(a.n_q * a.n_qtiles), kThreads, kSmem, stream>>>(
           maps[0], maps[1], maps[2], (__nv_bfloat16*)out, a);
   return (int)cudaGetLastError();
@@ -691,10 +524,11 @@ static int launch(const CUtensorMap* maps, void* out, const Args& a,
 // (d, rows, leading 2, 1, 0), a broadcast dim of size 1; strides: 12 byte
 // strides, per map those of its four outer dims (multiples of 16); lead:
 // the leading sizes (n0, n1, n2) of q and out; out_strides: 4 element
-// strides of out's leading dims 0-2 and rows.  D in {64, 96, 128}; every
-// pointer 16-byte aligned.  Returns a cudaError_t.
+// strides of out's leading dims 0-2 and rows; lse as flash_attention_launch
+// takes it.  D in {64, 96, 128}; every pointer 16-byte aligned.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_sm90_launch(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, float* lse,
     const long long* dims, const long long* strides, const long long* lead,
     const long long* out_strides, int S, int T, int D, int causal,
     void* stream) {
@@ -710,7 +544,8 @@ extern "C" int flash_attention_sm90_launch(
     if ((uintptr_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
   CUtensorMap maps[3];
   for (int t = 0; t < 3; ++t)
-    if (!sm90::make_map(&maps[t], ptrs[t], dims + 5 * t, strides + 4 * t))
+    if (!sm90::make_map(&maps[t], ptrs[t], dims + 5 * t, strides + 4 * t,
+                        sm90::kBK))
       return (int)cudaErrorInvalidValue;
   sm90::Args a;
   a.n1 = (int)lead[1];
@@ -728,6 +563,11 @@ extern "C" int flash_attention_sm90_launch(
   }
   for (int i = 0; i < 4; ++i) a.o[i] = out_strides[i];
   a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  if (D == 64) return sm90::launch<64>(maps, out, a, (cudaStream_t)stream);
-  return sm90::launch<128>(maps, out, a, (cudaStream_t)stream);
+  a.lse = lse;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    return lse ? sm90::launch<64, true>(maps, out, a, st)
+               : sm90::launch<64, false>(maps, out, a, st);
+  return lse ? sm90::launch<128, true>(maps, out, a, st)
+             : sm90::launch<128, false>(maps, out, a, st);
 }

@@ -16,7 +16,13 @@ The bf16 kernel's arithmetic (tiles of 128 keys, online softmax in base
 2, P split into two bf16 halves for the tensor cores) is modelled here in
 plain PyTorch and held to chip_smoke.py's per-element limit: 2 bf16 ulps
 of the larger of the two values plus 1e-5.  Its TMA maps' description
-(``tensor_maps``) is checked on CPU tensors.
+(``tensor_maps``) is checked on CPU tensors.  The lse the forward saves
+for training is held against jax's logsumexp of the oracle's scores.
+
+The backward: its plain version against jax.vjp of the oracle, the bf16
+kernels' arithmetic (single bf16 P and dS into f32 sums, the forward's
+lse) modelled and held to chip_smoke.py's phase-11a limit, and its
+layout (``bwd_layout``: the model's views handed over uncopied).
 """
 import math
 
@@ -28,6 +34,7 @@ import torch
 
 from repro.kernels import ref
 from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import kernel_layout, tensor_maps
 from repro_torch.models.carry import tensor_from_numpy
 
@@ -135,6 +142,47 @@ def test_flash_attention_kv_group_contract():
     r = torch.zeros((S, 66))[:, :H]
     with pytest.raises(ValueError, match="multiples of 4"):
         kernel_layout(r, r, r, r)
+
+
+def _ref_lse(q, k, causal):
+    """jax.nn.logsumexp of the oracle's masked scores
+    (ref.flash_attention_ref's first lines), k broadcast to q's leading
+    dims."""
+    def lse(a, b):
+        s = (a.astype(jnp.float32) @ b.astype(jnp.float32).T) \
+            / np.sqrt(a.shape[-1])
+        if causal:
+            S, T = s.shape
+            s = jnp.where(jnp.arange(S)[:, None] >= jnp.arange(T)[None, :],
+                          s, -1e30)
+        return jax.nn.logsumexp(s, axis=-1)
+    fn = lse
+    for _ in range(q.ndim - 2):
+        fn = jax.vmap(fn)
+    kb = np.broadcast_to(k, q.shape[:-2] + k.shape[-2:])
+    return np.asarray(fn(jnp.asarray(q), jnp.asarray(kb)), np.float32)
+
+
+LSE_CASES = [((128, 64), (128, 64), True), ((128, 64), (128, 64), False),
+             ((37, 128), (53, 128), True), ((130, 96), (250, 96), False),
+             ((2, 2, 3, 40, 64), (2, 2, 1, 40, 64), True)]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal", LSE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_lse_matches_reference(shape_q, shape_kv, causal,
+                                               dtype):
+    """``return_lse``: each row's logsumexp of its scaled, masked f32
+    scores (what the backward takes), against jax's logsumexp of the
+    oracle's scores within 1e-5 (f32 summation order); the output is the
+    one without it."""
+    (q, k, v), (tq, tk, tv), _ = _inputs(shape_q, shape_kv, dtype, 13)
+    out, lse = ops.flash_attention(tq, tk, tv, causal=causal,
+                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == tq.shape[:-1]
+    np.testing.assert_allclose(lse.numpy(), _ref_lse(q, k, causal),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ops.flash_attention(tq, tk, tv, causal=causal))
 
 
 # ----------------------------------------------- the bf16 kernel's model --
@@ -356,8 +404,9 @@ def test_flash_attention_bwd_plain_matches_reference_vjp(shape_q, shape_kv,
     rng = np.random.default_rng(5)
     dout = np.asarray(jnp.asarray(rng.normal(size=shape_q), jdt))
     tdo = tensor_from_numpy(dout, "cpu")
-    out = ops.flash_attention(tq, tk, tv, causal=causal)
-    got = ops.flash_attention_bwd(tq, tk, tv, out, tdo, causal=causal)
+    out, lse = ops.flash_attention(tq, tk, tv, causal=causal,
+                                   return_lse=True)
+    got = ops.flash_attention_bwd(tq, tk, tv, out, tdo, lse, causal=causal)
     want = _ref_vjp(q, k, v, dout, causal)
     # torch autograd of the plain forward, in float64
     t64 = [t.to(torch.float64).requires_grad_() for t in (tq, tk, tv)]
@@ -397,31 +446,182 @@ def test_flash_attention_train_gradients_are_the_plain_autograd(causal):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _kv_heads(lead, kdims):
+    """The backward kernels' grouping, as csrc/flash_attention_bwd.cu's
+    kv_lead computes it: for each kv head u (row-major over the leading
+    dims k's map indexes, size > 1) the leading coordinates of its G query
+    heads, g row-major over the dims k broadcasts over."""
+    ki = [kdims[4 - i] > 1 for i in range(3)]
+    own = [n if x else 1 for n, x in zip(lead, ki)]
+    shared = [1 if x else n for n, x in zip(lead, ki)]
+    heads = []
+    for u in range(math.prod(own)):
+        cu = np.unravel_index(u, own)
+        heads.append([tuple(int(cu[i] if ki[i] else cg[i]) for i in range(3))
+                      for cg in (np.unravel_index(g, shared)
+                                 for g in range(math.prod(shared)))])
+    return heads
+
+
 @pytest.mark.parametrize("shape_q,shape_kv", [
     ((2, 8, 4, 33, 16), (2, 8, 1, 33, 16)),     # the model's views
     ((2, 3, 4, 9, 16), (2, 1, 4, 9, 16)),       # k shared over a middle dim
     ((4, 9, 16), (1, 9, 16)), ((1, 5, 9, 16), (1, 5, 9, 16))])
 def test_flash_attention_bwd_kernel_layout(shape_q, shape_kv):
-    """``bwd_layout``, the CUDA wrapper's reordering: the plain backward
-    run on the kernel's (n_kv, G, S, d) / (n_kv, 1, T, d) copies and put
-    back with ``inv`` equals the plain backward on the inputs."""
+    """``bwd_layout``, what the kernels read: their grouping of q heads
+    by kv head (``_kv_heads``, from the maps' sizes) covers every q head
+    once, and the plain backward per q head, dk and dv summed over each
+    kv head's group in that order, equals the plain backward on the
+    inputs."""
     from repro_torch.kernels.flash_attention import bwd_layout
     rng = np.random.default_rng(1)
     q, out, dout = (torch.as_tensor(rng.normal(size=shape_q),
                                     dtype=torch.float32) for _ in range(3))
     k, v = (torch.as_tensor(rng.normal(size=shape_kv), dtype=torch.float32)
             for _ in range(2))
-    (qc, kc, vc, oc, doc), n_kv, G, inv = bwd_layout(q, k, v, out, dout)
-    S, T, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    assert all(t.is_contiguous() for t in (qc, kc, vc, oc, doc))
-    grads = ops.flash_attention_bwd_plain(
-        qc.view(n_kv, G, S, d), kc.view(n_kv, 1, T, d),
-        vc.view(n_kv, 1, T, d), oc.view(n_kv, G, S, d),
-        doc.view(n_kv, G, S, d))
-    back = [g.view(c.shape).permute(inv)
-            for g, c in zip(grads, (qc, kc, vc))]
-    want = ops.flash_attention_bwd_plain(q, k, v, out, dout)
-    for b, w in zip(back, want):
-        assert b.shape == w.shape
-        np.testing.assert_allclose(b.numpy(), w.numpy(), rtol=1e-5,
-                                   atol=1e-5)
+    lse = torch.logsumexp(fa._masked_scores(q, k, True), dim=-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lead, dims, _, _ = bwd_layout(q, k, v, out, dout, dq, dk, dv)
+    heads = _kv_heads(lead, dims[5:10])
+    seen = sorted(c for group in heads for c in group)
+    assert seen == sorted(np.ndindex(*lead))
+    # the kernels' view of every tensor: (lead0, lead1, lead2, rows, d)
+    view = lambda t: t.expand(*q.shape[:-2], *t.shape[-2:]).reshape(
+        *lead, *t.shape[-2:])
+    qv, kv_, vv, ov, dov = (view(t) for t in (q, k, v, out, dout))
+    lv = lse.reshape(*lead, -1)
+    want = ops.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    dq_w, dk_w, dv_w = (view(t) for t in want)
+    for group in heads:
+        sk = sv = 0
+        for c in group:
+            g = ops.flash_attention_bwd_plain(qv[c], kv_[c], vv[c], ov[c],
+                                              dov[c], lv[c])
+            np.testing.assert_allclose(g[0].numpy(), dq_w[c].numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            sk, sv = sk + g[1], sv + g[2]
+        np.testing.assert_allclose(sk.numpy(), dk_w[group[0]].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(sv.numpy(), dv_w[group[0]].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_bwd_hands_over_the_model_views_uncopied():
+    """The training path's views through ``bwd_launch_args``: every
+    pointer handed to the bf16 entry point is a tensor's own data
+    pointer, the maps describe the views' own strides (k's and v's group
+    dim of size 1), dq, dk and dv come back in q's, k's and v's shapes and
+    strides, and the output gradient autograd hands the backward comes in
+    out's memory order, so nothing is made dense on the way."""
+    B, S, K, G, H = 2, 40, 3, 4, 64
+    bf = torch.bfloat16
+    q = torch.zeros((B, S, K, G, H), dtype=bf).permute(0, 2, 3, 1, 4)
+    k, v = (torch.zeros((B, S, K, H), dtype=bf).permute(0, 2, 1, 3)
+            .unsqueeze(2) for _ in range(2))
+    out = torch.empty_like(q)
+    # autograd's gradient of out through the model's permute and the
+    # projection's (B, S, K * G * H) reshape
+    recorded = {}
+    inner = fa.flash_attention_bwd
+
+    def record(q_, k_, v_, out_, dout_, lse_, causal=True):
+        recorded["dout"] = dout_
+        return inner(q_, k_, v_, out_, dout_, lse_, causal=causal)
+    fa.flash_attention_bwd = record
+    try:
+        x = [torch.randn(t.shape).to(bf).requires_grad_() for t in (q, k, v)]
+        y = ops.flash_attention_train(*x).permute(0, 3, 1, 2, 4)
+        (y.reshape(B, S, -1).float() ** 2).sum().backward()
+    finally:
+        fa.flash_attention_bwd = inner
+    dout = recorded["dout"]
+    assert fa._strided_ok(dout) and dout.stride() == out.stride()
+    lse = torch.empty(q.shape[:-1])
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for got, x in ((dq, q), (dk, k), (dv, v)):
+        assert got.shape == x.shape and got.stride() == x.stride()
+    scratch = torch.empty(2 * B * K * G * 64)
+    args = fa.bwd_launch_args(q, k, v, out, dout, lse, dq, dk, dv, scratch)
+    assert args[:10] == [t.data_ptr() for t in (q, k, v, out, dout, lse, dq,
+                                                 dk, dv, scratch)]
+    dims, strides, lead, out_strides = (list(a) for a in args[10:14])
+    assert args[14:] == [S, S, H] and lead == [B, K, G]
+    assert dims[:5] == dims[15:20] == dims[20:25] == [H, S, G, K, B]
+    assert dims[5:10] == dims[10:15] == [H, S, 1, K, B]
+    q_bytes = [2 * K * G * H, 2 * H, 2 * G * H, 2 * S * K * G * H]
+    assert strides[:4] == strides[12:16] == strides[16:20] == q_bytes
+    assert strides[4:8] == strides[8:12] == [2 * K * H, 2 * S * K * H, 2 * H,
+                                             2 * S * K * H]
+    assert out_strides == [S * K * G * H, G * H, H, K * G * H] \
+        + [S * K * H, H, 0, K * H] * 2
+
+
+# ------------------------------------------------ the bf16 backward's model --
+# csrc/flash_attention_bwd.cu's bf16 arithmetic: S and dP as f32 sums of
+# exact bf16 products, P = exp2(fma(S, log2(e)/sqrt(d), -lse log2(e))) from
+# the forward's lse, D = rowsum(dO * O) in f32, dS = P (dP - D) in f32, and
+# the three gradient products from single bf16 P and dS (exact products,
+# f32 sums).  Held to chip_smoke.py's phase-11a limit: BWD_TOL x max(1,
+# max |want|) of each gradient against jax.vjp of the oracle.
+
+BWD_TOL = 1e-2              # chip_smoke.py's BWD_TOL["bfloat16"]
+
+
+def _bwd_model(q, k, v, out, dout, lse, causal):
+    qf, kf, vf, of, dof = (t.to(torch.float32) for t in (q, k, v, out, dout))
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = 1 / torch.sqrt(torch.tensor(float(q.shape[-1])))
+    c = log2e * scale
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    l2 = (lse * log2e)[..., None]
+    # fma(s, c, -l2): one rounding, as float64 holds s * c exactly
+    p = torch.exp2((s.double() * c.double() - l2.double()).float())
+    if causal:
+        S, T = s.shape[-2:]
+        p = torch.where(torch.arange(S)[:, None] >= torch.arange(T)[None, :],
+                        p, 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    pb, dsb = (t.to(torch.bfloat16).to(torch.float32) for t in (p, ds))
+    dq = torch.matmul(dsb, kf) * scale
+    dk = fa._sum_to(torch.matmul(dsb.transpose(-1, -2), qf) * scale, k.shape)
+    dv = fa._sum_to(torch.matmul(pb.transpose(-1, -2), dof), v.shape)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+BWD_MODEL_CASES = [  # q shape, kv shape, causal, input scale
+    ((1, 2, 2, 200, 64), (1, 2, 1, 200, 64), True, 0.25),
+    ((1, 2, 2, 200, 64), (1, 2, 1, 200, 64), True, 1.0),
+    ((130, 64), (250, 64), False, 3.0),
+    ((1, 2, 2, 200, 96), (1, 2, 1, 200, 96), True, 1.0),
+    ((130, 96), (250, 96), False, 0.25),
+    ((1, 2, 2, 150, 96), (1, 2, 1, 150, 96), True, 3.0),
+    ((1, 2, 2, 256, 128), (1, 2, 1, 256, 128), True, 0.25),
+    ((1, 2, 2, 256, 128), (1, 2, 1, 256, 128), True, 1.0),
+    ((1, 2, 2, 256, 128), (1, 2, 1, 256, 128), True, 3.0),
+]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal,scale", BWD_MODEL_CASES)
+def test_bwd_kernel_model_within_the_phase_11a_limit(shape_q, shape_kv,
+                                                     causal, scale):
+    """The bf16 backward kernels' arithmetic, on the forward kernel's
+    modelled output and lse, against jax.vjp of the reference oracle at
+    head dims 64, 96 and 128 and input scales 0.25, 1 and 3: each of dq,
+    dk and dv within BWD_TOL x max(1, max |want|)."""
+    rng = np.random.default_rng(shape_q[-2] * 7 + shape_q[-1])
+    arrs = [np.asarray(jnp.asarray(scale * rng.normal(size=sh),
+                                   jnp.bfloat16))
+            for sh in (shape_q, shape_kv, shape_kv)]
+    dout = np.asarray(jnp.asarray(rng.normal(size=shape_q), jnp.bfloat16))
+    tq, tk, tv, tdo = (tensor_from_numpy(a, "cpu")
+                       for a in (*arrs, dout))
+    _, lse = ops.flash_attention_plain(tq, tk, tv, causal=causal,
+                                       return_lse=True)
+    out = _kernel_model(tq, tk, tv, causal)
+    got = _bwd_model(tq, tk, tv, out, tdo, lse, causal)
+    want = _ref_vjp(*arrs, dout, causal)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape
+        limit = BWD_TOL * max(1.0, float(np.abs(w).max()))
+        assert float(np.abs(g.float().numpy() - w).max()) <= limit

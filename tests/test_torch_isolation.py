@@ -85,7 +85,7 @@ def test_kernel_wrappers_count_only_their_launches():
     ops.delta_decode(torch.zeros((1, 1), dtype=torch.int32), runs)
     q = torch.zeros((1, 2, 5, 64))
     ops.flash_attention(q, q[:, :1], q[:, :1])
-    ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)
+    ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, q[..., 0])
     ops.flash_attention_train(q.requires_grad_(), q[:, :1], q[:, :1]).sum() \
         .backward()
     assert ops.launch_counts() == {
