@@ -62,7 +62,16 @@ Phases, one line each (any failure raises and the script exits non-zero):
    kernel's outputs are also held against its plain version on the card
    (ints and counts exact, f32 sums within rtol 1e-5), and one float
    ``delta_decode`` case at (123, 4096) within rtol 1e-5 of the running
-   magnitude;
+   magnitude.  Each row also carries the library call's device ms and
+   the wrapper's host enqueue us per call.  Then ``api_case_checks``:
+   ``semijoin_probe`` and ``onehot_groupby`` against their plain
+   versions on the edge cases of ``probe_cases`` / ``fold_cases``
+   (INT32_MIN and INT32_MAX on both sides, -1 probes at S % 128 zero and
+   not, -1 in the build side, an empty build side, duplicates, one key
+   4,096 times, 4,096 multiples of 8,192 and of 16,384; sorted and random
+   keys, out-of-domain keys inside runs, one run across every chunk,
+   ragged rows, two tiles, int sums that would wrap), aligned and off
+   16-byte alignment: booleans and counts exactly, sums within rtol 1e-5;
 6. compressed-domain execution (``compressed_phase``): on the main
    database at ``benchmarks/cstore_queries.py``'s constrained budget
    (max(0.55 (packed + decoded), 2 packed + 1 MiB) over l_shipdate,
@@ -331,9 +340,21 @@ def _device_events(prof):
 def _profile(fn, reps: int = 1):
     """Device milliseconds per call of the device kernels in a
     torch.profiler trace of ``reps`` calls: the total and the share by
-    kernel name.  Returns (None, {}) when the trace holds no kernel."""
+    kernel name.  Returns (None, {}) when the trace holds no kernel.  A
+    trace that may have lost kernel records (``TraceLoss``) is printed as
+    a ``[profile]`` line and taken again, up to ``PROFILE_ATTEMPTS``
+    times, as ``_kernel_device_ms`` does; then the run fails."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        try:
+            events = _device_events(_traced(fn, reps))
+            break
+        except TraceLoss as e:
+            if attempt == PROFILE_ATTEMPTS:
+                raise
+            _say("profile", lost_kernels="trace", attempt=attempt,
+                 why=str(e).replace(" ", "_")[:200])
     by_name = {}
-    for e in _device_events(_traced(fn, reps)):
+    for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / reps
     total = sum(by_name.values())
@@ -1178,9 +1199,33 @@ def _containers(db, table, nodes=None):
     return [c for n in nodes for c in db.nodes[n].stores[table].containers]
 
 
+HOST_CALLS = 1000       # calls per host enqueue timing
+
+
+def _host_us(fn, calls: int = HOST_CALLS, repeats: int = 3) -> float:
+    """Host microseconds per call to enqueue ``calls`` calls back to back,
+    with no synchronise among them (after one synchronised warm-up), the
+    least of ``repeats`` such runs, since other work on the host only adds
+    to it: the wrapper's own cost, unless the card falls so far behind
+    that the launch queue fills."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
 def _api_row(name, source, replaces, fn, plain, library, kernel, nbytes,
              shape, **extra):
-    """One JSON row of a phase-5 kernel, timed on one call's inputs."""
+    """One JSON row of a phase-5 kernel, timed on one call's inputs.  The
+    library call's device ms is every kernel of one call, from the same
+    padded traces as the kernel's."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces,
@@ -1188,16 +1233,195 @@ def _api_row(name, source, replaces, fn, plain, library, kernel, nbytes,
             "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None if library is None else _time_ms(library),
             "kernel_device_ms": _kernel_device_ms(fn, kernel),
-            "shape": shape, **extra}
+            "library_device_ms": None if library is None
+            else _kernel_device_ms(library, ""),
+            "host_us": _host_us(fn), "shape": shape, **extra}
 
 
 def _say_row(row, **kw) -> None:
+    if "host_us" in row:                # phase 5's rows
+        kw.update(library_device_ms=_fmt(row["library_device_ms"]),
+                  host_us=f"{row['host_us']:.2f}")
     _say("kernel", name=row["name"], launches=row["launches"], **kw,
          ms=f"{row['ms']:.4f}",
          kernel_device_ms=_fmt(row["kernel_device_ms"]),
          plain_ms=f"{row['plain_ms']:.4f}",
          library_ms=_fmt(row["library_ms"]),
          bound_ms=f"{row['bound_ms']:.6f}")
+
+
+# ------------------ edge cases of semijoin_probe's and onehot_groupby's --
+# The inputs that break a hash set or a run fold quietly, from numpy's
+# seeds: phase 5 holds both kernels against their plain versions on them,
+# and tests/test_torch_sip_prepass.py holds numpy models of the two
+# algorithms against the reference's Pallas kernels on the same ones.
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+# probed in every probe case: -1 (the padding) and the hash set's empty
+# marker (INT32_MIN) beside the other extremes
+SENTINELS = (-1, I32_MIN, I32_MAX, 0, I32_MIN + 1, I32_MAX - 1)
+
+
+def probe_cases():
+    """name -> (probe keys (nb, B) int32, build keys (S,) int32)."""
+    rng = np.random.default_rng(0)
+    # like phase 5's: ascending orderkeys of 1,500,000 (phase 5 has 4,119
+    # dated 0; here 4,110: chunks of 4,096 and 14) against uniform
+    # l_orderkeys, a few hitting
+    orders = np.sort(rng.choice(1_500_000, 4110, replace=False))
+    lineitem = rng.integers(0, 1_500_000, (2, 4096))
+    lineitem[0, 100:164] = orders[::64][:64]
+    lineitem[1, :14] = orders[4096:]
+    small = rng.integers(-300, 300, (1, 512))
+    # one slot under key & (slots - 1), at the table's size and half of it
+    mult = np.arange(4096, dtype=np.int64) * 8192
+    mult16 = np.arange(4096, dtype=np.int64) * 16384
+    cases = {
+        "phase5_chunk_4096": (lineitem, orders[:4096]),
+        "phase5_chunk_14": (lineitem, orders[4096:]),
+        "int32_extremes_in_build": (small, [I32_MIN, I32_MAX, 0, -2, 17]),
+        "int32_min_absent": (small, rng.integers(-300, 300, 128)),
+        "minus_one_S100": (small, np.arange(100)),
+        "minus_one_S128": (small, np.arange(128)),
+        "minus_one_S4096": (small, np.arange(4096) * 3 + 1),
+        "minus_one_in_build_S128": (small, np.r_[np.arange(127), -1]),
+        "empty_build": (small, np.zeros(0, np.int64)),
+        "duplicates_ragged": (rng.integers(-10, 310, (3, 130)),
+                              rng.integers(0, 300, 4096)),
+        "one_key_4096_times": (rng.integers(0, 16, (1, 512)),
+                               np.full(4096, 7)),
+        "multiples_of_8192": (np.r_[mult[::8], mult[::8] + 1,
+                                    mult[:512] + 4096 * 8192]
+                              .reshape(2, 768), mult),
+        "multiples_of_16384": (np.r_[mult16[::8], mult16[::8] + 1,
+                                     mult16[:512] + 4096 * 16384]
+                               .reshape(2, 768), mult16),
+    }
+    out = {}
+    for name, (keys, build) in cases.items():
+        keys = np.array(keys, dtype=np.int64)
+        keys.reshape(-1)[1:1 + len(SENTINELS)] = SENTINELS
+        out[name] = (keys.astype(np.int32),
+                     np.asarray(build, dtype=np.int64).astype(np.int32))
+    return out
+
+
+def fold_cases():
+    """name -> (keys (nb, B) int32, values (nb, B) int32 or f32, domain)."""
+    rng = np.random.default_rng(1)
+    # Q3: l_suppkey sorted within a day, rows outside the dates keyed -1
+    n = 3 * 4096
+    day = np.sort(rng.integers(0, 4, n))
+    supp = rng.integers(0, 100, n)
+    q3 = supp[np.lexsort((supp, day))]
+    q3[:300] = -1
+    q3[-700:] = -1
+    # Qorders: o_orderdate over 365 in o_orderkey order, the tail padded
+    qo = rng.integers(0, 365, n)
+    qo[-1000:] = -1
+    # out-of-domain keys inside runs, at domain 100
+    ood = np.tile([5, 5, -1, 5, 5, 100, 5, I32_MIN, 5, I32_MAX, 99, 99, -1,
+                   99, 0, 0], 8)
+    runs = np.repeat(rng.integers(0, 50, 60), rng.integers(1, 40, 60))[:1024]
+    # values whose int sum wraps (f32 rounds each to 2^30: sums exact)
+    big = np.full((1, 4096), 2 ** 30 - 1)
+    cases = {
+        "q3_sorted_within_day": (q3.reshape(3, 4096),
+                                 rng.integers(1, 50, (3, 4096)), 100),
+        "qorders_random": (qo.reshape(3, 4096),
+                           rng.integers(0, 1000, (3, 4096)), 365),
+        "out_of_domain_inside_runs": (ood.reshape(1, 128),
+                                      rng.integers(1, 9, (1, 128)), 100),
+        "one_run_across_every_chunk": (np.full((2, 4096), 3),
+                                       rng.uniform(0, 1e3, (2, 4096))
+                                       .astype(np.float32), 16),
+        "float_runs": (runs.reshape(2, 512),
+                       rng.uniform(0, 1e3, (2, 512)).astype(np.float32), 50),
+        "ragged_rows_B130": (rng.integers(-2, 9, (3, 130)),
+                             rng.uniform(0, 10, (3, 130))
+                             .astype(np.float32), 7),
+        "two_tiles_domain_1024": (np.sort(rng.integers(-5, 1030, (2, 4196)),
+                                          axis=1),
+                                  rng.integers(-50, 50, (2, 4196)), 1024),
+        "domain_1": (rng.integers(-1, 2, (1, 256)),
+                     rng.integers(0, 9, (1, 256)), 1),
+        "no_key_in_domain": (np.where(rng.random((2, 256)) < 0.5, -1, 10),
+                             rng.integers(0, 9, (2, 256)), 10),
+        "int_values_near_2_30": (np.sort(rng.integers(0, 4, (1, 4096)),
+                                         axis=1), big, 4),
+    }
+    out = {}
+    for name, (keys, vals, domain) in cases.items():
+        vals = np.asarray(vals)
+        out[name] = (np.asarray(keys, dtype=np.int64).astype(np.int32),
+                     vals if vals.dtype == np.float32
+                     else vals.astype(np.int32), domain)
+    return out
+
+
+def _offset_copy(t):
+    """``t`` as a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary: the kernels' element-wise load path."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def api_case_checks(device) -> None:
+    """Phase 5's edge cases: ``semijoin_probe`` bool for bool against its
+    plain version and ``np.isin`` of the padded build side, and
+    ``onehot_groupby`` against its plain version, counts exactly and sums
+    within rtol 1e-5; each on aligned inputs and on a copy off 16-byte
+    alignment."""
+    import torch
+    from repro_torch.kernels import hash_groupby, sip_probe
+    n_probe = 0
+    for name, (keys, build) in probe_cases().items():
+        padded = np.r_[build, np.full((-len(build)) % 128, -1, np.int32)]
+        want_host = np.isin(keys, padded)
+        k = torch.as_tensor(keys, device=device)
+        b = torch.as_tensor(build, device=device)
+        want = sip_probe.semijoin_probe_plain(k, b)
+        if not np.array_equal(want.cpu().numpy(), want_host):
+            raise AssertionError(f"semijoin_probe case {name}: the plain "
+                                 f"version differs from np.isin")
+        for kk in (k, _offset_copy(k)):
+            got = sip_probe.semijoin_probe(kk, b)
+            n_probe += 1
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(
+                    f"semijoin_probe case {name} (offset="
+                    f"{kk.data_ptr() % 16}): {bad} of {got.numel()} keys "
+                    f"differ from the plain version")
+    n_fold = 0
+    worst = 0.0
+    for name, (keys, vals, domain) in fold_cases().items():
+        k = torch.as_tensor(keys, device=device)
+        v = torch.as_tensor(vals, device=device)
+        want = hash_groupby.onehot_groupby_plain(k, v, domain=domain)
+        for kk, vv in ((k, v), (_offset_copy(k), _offset_copy(v))):
+            got = hash_groupby.onehot_groupby(kk, vv, domain=domain)
+            n_fold += 1
+            where = (f"onehot_groupby case {name} "
+                     f"(offset={kk.data_ptr() % 16})")
+            if not torch.equal(got[..., 0], want[..., 0]):
+                raise AssertionError(f"{where}: counts differ")
+            if not torch.allclose(got[..., 1], want[..., 1], rtol=1e-5,
+                                  atol=0):
+                raise AssertionError(f"{where}: sums beyond rtol 1e-5 of "
+                                     f"the plain version")
+            worst = max(worst, float(
+                ((got[..., 1] - want[..., 1]).abs()
+                 / want[..., 1].abs().clamp_min(1e-30)).max()))
+    torch.cuda.synchronize()
+    _say("check", kernel="semijoin_probe", edge_cases=len(probe_cases()),
+         launches=n_probe, offsets="0,4", plain="match", np_isin="match")
+    _say("check", kernel="onehot_groupby", edge_cases=len(fold_cases()),
+         launches=n_fold, offsets="0,4", counts="exact",
+         sum_max_rel_err=f"{worst:.3g}")
 
 
 def _prepass_inputs(keys, valid, values, aggs):
@@ -1472,6 +1696,7 @@ def kernel_api_phase(db, fact, dim, capture, device):
                    "or hashed build side answers in O(1)-O(log S) each)")
     rows.append(row)
     _say_row(row, exact=True)
+    api_case_checks(device)
     return rows
 
 

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Planted faults in the seg_preagg and rle_grouped_agg kernels against
-chip_smoke's checks.
+"""Planted faults in the group-by and probe kernels against chip_smoke's
+checks.
 
-    python3 scripts/torch_groupby_faults.py      # from anywhere, one GPU
+    python3 scripts/torch_groupby_faults.py [CASE ...]   # one GPU
 
-For each case of ``FAULTS``, ``src/repro_torch`` and ``chip_smoke.py`` are
-copied into a temporary directory, the fault is written into the copy's
-``kernels/csrc/seg_preagg.cu`` or ``rle_grouped_agg.cu``, and a child
-process run in the copy builds the kernels and runs chip_smoke's checks
-of the two kernels: phase 3's ``kernel_checks`` (the one-container and
-the whole-scan ``rle_grouped_agg`` rows, on a database of a quarter of
-SF1: 1,500,000 lineitem and 375,000 orders rows), ``seg_preagg_case_checks``
-and ``rle_case_checks``, and phase 4's main path (every query against its
-numpy oracle) followed by ``seg_preagg_rows`` (the kernel against its
-plain version on every main-path input).  One ``[fault]`` line per case
+For each case of ``FAULTS`` (all of them, or those named), ``src/repro_torch``
+and ``chip_smoke.py`` are copied into a temporary directory, the fault is
+written into the copy's ``kernels/csrc/<source>``, and a child process run
+in the copy builds the kernels and runs chip_smoke's checks of them, on a
+database of a quarter of SF1 (1,500,000 lineitem and 375,000 orders rows):
+phase 3's ``kernel_checks`` (the one-container and the whole-scan
+``rle_grouped_agg`` rows), ``seg_preagg_case_checks`` and
+``rle_case_checks``; phase 4's main path (every query against its numpy
+oracle) followed by ``seg_preagg_rows`` (the kernel against its plain
+version on every main-path input); phase 5's ``kernel_api_phase`` over
+that main path's inputs (``np.isin``, the plain versions, ``seg_preagg``'s
+counts and sums), which ends with ``api_case_checks`` (the edge cases of
+``semijoin_probe`` and ``onehot_groupby``).  One ``[fault]`` line per case
 and check.  The first case plants nothing.  The repository itself is
 never written.  Exits 1 unless the clean kernels pass every check and
 each fault fails at least one.
@@ -47,6 +50,23 @@ FAULTS = {
                           [("const long long total = segs.start[n_segs];",
                             "const long long total = "
                             "segs.start[n_segs > 1 ? n_segs - 1 : n_segs];")]),
+    # the probe gives up when the next slot is empty, before it has
+    # compared the current one: a key at the end of its chain is missed
+    "probe_stops_one_slot_early": (
+        "semijoin_probe.cu",
+        [("    if (v == key) return true;\n    if (v == kEmpty) return false;",
+          "    if (t.slots[(s + 1) & kMask] == kEmpty) return false;\n"
+          "    if (v == key) return true;")]),
+    # a build key equal to the empty marker never sets the flag
+    "drop_empty_marker_flag": ("semijoin_probe.cu",
+                               [("    t.has_empty = 1;\n", "")]),
+    # each chunk's last run is never added to the table
+    "fold_loses_last_run": ("onehot_groupby.cu",
+                            [("    if (run_n > 0) {", "    if (false) {")]),
+    # the count is read from the sum's table at write-out
+    "count_from_sum_table": ("onehot_groupby.cu",
+                             [("make_float2((float)cnt[j], sum[j])",
+                               "make_float2(sum[j], sum[j])")]),
 }
 N_FACT, N_DIM = 1_500_000, 375_000
 
@@ -59,23 +79,36 @@ def child(name: str) -> int:
     from repro_torch.data import star_schema
     from repro_torch.kernels import build, ops
 
-    build.build_all(("seg_preagg", "rle_grouped_agg", "bitunpack"))
+    build.build_all(("seg_preagg", "rle_grouped_agg", "bitunpack",
+                     "rle_filter_agg", "delta_decode", "onehot_groupby",
+                     "semijoin_probe"))
     cs.N_FACT, cs.N_DIM = N_FACT, N_DIM
     fact, dim = star_schema(N_FACT, N_DIM, seed=0)
     db = cs.build_db(fact, dim, "cuda")
+
+    captured = []
 
     def main_path():
         with cs.SegCapture() as capture:
             ops.reset_launch_counts()
             cs.run_main_path(db, fact, dim, "cuda", capture)
             launched = ops.launch_counts()["seg_preagg"]
+        captured.append(capture)
         cs.seg_preagg_rows(capture, launched, "cuda")
+
+    def api_phase():
+        if not captured:        # phase 5 takes the main path's inputs
+            with cs.SegCapture() as capture:
+                cs.run_main_path(db, fact, dim, "cuda", capture)
+            captured.append(capture)
+        cs.kernel_api_phase(db, fact, dim, captured[0], "cuda")
 
     checks = (("kernel_checks", lambda: cs.kernel_checks(db, "cuda")),
               ("seg_preagg_case_checks",
                lambda: cs.seg_preagg_case_checks("cuda")),
               ("rle_case_checks", lambda: cs.rle_case_checks("cuda")),
-              ("main_path+seg_preagg_rows", main_path))
+              ("main_path+seg_preagg_rows", main_path),
+              ("kernel_api_phase+api_case_checks", api_phase))
     failed = 0
     for check, fn in checks:
         try:
@@ -91,8 +124,13 @@ def child(name: str) -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         return child(sys.argv[2])
+    names = sys.argv[1:] or list(FAULTS)
+    unknown = [n for n in names if n not in FAULTS]
+    if unknown:
+        raise SystemExit(f"unknown cases {unknown}; cases: {list(FAULTS)}")
     bad = 0
-    for name, (source, edit) in FAULTS.items():
+    for name in names:
+        source, edit = FAULTS[name]
         tmp = tempfile.mkdtemp(prefix="groupby_fault_")
         try:
             shutil.copytree(os.path.join(REPO, "src", "repro_torch"),

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -96,10 +97,15 @@ def load(name: str) -> ctypes.CDLL:
 def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """Entry point ``symbol`` of ``csrc/<name>.cu`` with its C signature
     declared: ``c_void_p`` for every pointer and the stream, so ctypes
-    never cuts a 64-bit address to an int; it returns a cudaError_t."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    never cuts a 64-bit address to an int; it returns a cudaError_t.
+    Declared once per (library, symbol) and cached: setting ``argtypes``
+    costs more host time than the call it prepares."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
     return fn
 
 

@@ -29,6 +29,7 @@ launches = 0    # kernel launches by ``onehot_groupby``
 #                       domain, out, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_KERNEL_DTYPES = (torch.int32, torch.float32)
 
 
 def onehot_groupby_plain(keys: torch.Tensor, values: torch.Tensor, *,
@@ -51,17 +52,27 @@ def onehot_groupby_plain(keys: torch.Tensor, values: torch.Tensor, *,
 
 
 def _launch(keys, values, domain: int):
+    """The kernel on CUDA tensors, with no more host work than the
+    contract needs: a cast only where the dtype differs, one device check
+    (``build.require_cuda`` and a no-op ``Tensor.to`` cost more host time
+    than the kernel takes at phase 5's Qorders), the output, the launch."""
     global launches
-    k = keys.to(torch.int32).contiguous()
-    v, v_float = build.int32_or_f32(values)
-    build.require_cuda("onehot_groupby", k, v)
+    k = keys if keys.dtype == torch.int32 else keys.to(torch.int32)
+    v = values if values.dtype in _KERNEL_DTYPES \
+        else values.to(torch.float32)
+    k = k.contiguous()
+    v = v.contiguous()
+    dev = k.device
+    if v.device != dev:
+        raise ValueError(f"onehot_groupby: tensors on {v.device} and {dev}")
     nb, B = k.shape
-    out = torch.empty((nb, domain, 2), dtype=torch.float32, device=k.device)
+    out = torch.empty((nb, domain, 2), dtype=torch.float32, device=dev)
     if nb:
         fn = build.entry("onehot_groupby", "onehot_groupby_launch",
                          _ARGTYPES)
-        build.check(fn(k.data_ptr(), v.data_ptr(), v_float, nb, B, domain,
-                       out.data_ptr(), build.stream_ptr(k.device)),
+        build.check(fn(k.data_ptr(), v.data_ptr(),
+                       int(v.dtype == torch.float32), nb, B, domain,
+                       out.data_ptr(), build.stream_ptr(dev)),
                     "onehot_groupby")
         launches += 1
     return out
