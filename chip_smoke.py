@@ -23,7 +23,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
    exact, sums within rtol 1e-5, on one container's runs and on every
    lineitem container's runs in one call (the whole scan of Q4, also
    against numpy); then seg_preagg's edge cases on both of its routes
-   (shared-memory and global; ``seg_preagg_case_checks``) and
+   (shared-memory and global; ``seg_preagg_case_checks``, with the global
+   route's lane fold, warp merge and sector skipping on ``global_cases``:
+   runs ending at and one row past lane and warp edges, one key for
+   every row and a distinct one, random keys at domain 150,000, all rows
+   invalid, half-valid sectors, out-of-range keys inside runs, int sums
+   that wrap, f32 min/max over signed zeros and infinities) and
    rle_grouped_agg's on lists of segments (``rle_case_checks``), each
    against the plain version on the card;
 4. the main path at TPC-H SF1 cardinalities (6,000,000 lineitem and
@@ -46,10 +51,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
    device time (device kernels only) and busy share;
 5. the kernel entry point ``repro_torch.kernels.ops`` at full size on
    the same database (the reference reaches these four kernels only
-   through its ``kernels.ops``): ``rle_filter_agg`` over the RLE
-   l_shipdate runs of every lineitem container for Q1's [180, 180] and
-   Q3's [61, 119] (counts, sums and max, tail padding subtracted, equal to
-   numpy's); ``bitunpack`` then ``delta_decode`` over the DELTA_RANGE
+   through its ``kernels.ops``): ``rle_filter_agg_many`` over the RLE
+   l_shipdate runs of every lineitem container, one launch for Q1's
+   [180, 180] and one for Q3's [61, 119] (each container's rows equal to
+   its own ``rle_filter_agg`` call and the plain version, and the counts,
+   sums and max, tail padding subtracted, equal to numpy's);
+   ``bitunpack`` then ``delta_decode`` over the DELTA_RANGE
    o_orderkey of every orders container on node 0 (bit for bit equal to
    the host decode); ``onehot_groupby`` on the keys and values the main
    path gave ``seg_preagg`` for Q3 and Qorders (invalid rows keyed -1;
@@ -72,6 +79,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    keys, out-of-domain keys inside runs, one run across every chunk,
    ragged rows, two tiles, int sums that would wrap), aligned and off
    16-byte alignment: booleans and counts exactly, sums within rtol 1e-5;
+   and ``rle_filter_agg_many`` on ``filter_cases`` (R = 0, 1, 4, 33, 128,
+   mixed R in one launch, empty segments, 70 segments, int32 and f32)
+   against its plain version and the per-segment calls, exactly;
 6. compressed-domain execution (``compressed_phase``): on the main
    database at ``benchmarks/cstore_queries.py``'s constrained budget
    (max(0.55 (packed + decoded), 2 packed + 1 MiB) over l_shipdate,
@@ -202,11 +212,14 @@ Phases, one line each (any failure raises and the script exits non-zero):
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
-bitunpack its one-container shape and the whole scan (``ms``,
+bitunpack and rle_filter_agg their one-container shape and the whole
+scan (``ms``,
 ``plain_ms``, ``library_ms``: CUDA-event time per call over 20 calls;
 ``kernel_device_ms``: the kernels of one call in a torch.profiler trace
 (for seg_preagg and rle_grouped_agg the output-initialising kernel
-included, and ``fold_device_ms`` without it);
+included, and ``fold_device_ms`` without it; seg_preagg and phase 5's
+rows also give the library call's ``library_device_ms`` from the same
+padded traces);
 ``bound_ms``: the bytes each call must move on its inputs over the
 H100's 3.35 TB/s, for ``flash_attention`` and ``flash_attention_bwd``
 the larger of that and its flops over the 989 TFLOP/s bf16 rate, with
@@ -819,6 +832,9 @@ def rle_scan_row(db, device) -> dict:
 CASE_AGGS = (("n", "*", "count"), ("si", "i", "sum"), ("mni", "i", "min"),
              ("mxi", "i", "max"), ("sf", "f", "sum"), ("mnf", "f", "min"),
              ("mxf", "f", "max"))
+# the same, with f32 min and max over a column "e" of signed zeros and
+# infinities (whose sums would be NaN)
+SIGNED_AGGS = CASE_AGGS[:5] + (("mne", "e", "min"), ("mxe", "e", "max"))
 
 
 def _seg_equal(got, want, aggs, what) -> float:
@@ -891,7 +907,8 @@ def seg_preagg_case_checks(device) -> None:
     and +-inf, keys/valid/values sliced at an odd element offset, slices
     whose pointers disagree on alignment, n not a multiple of 16 (every
     case: n = 1,000,003, and n = 5), and 32 aggregates at domain 100 and
-    at their own limit and one past it."""
+    at their own limit and one past it; then ``global_cases`` and
+    ``short_slice_cases`` on the global route at domain 150,000."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.seg_preagg import SMEM_BYTES, \
@@ -937,12 +954,11 @@ def seg_preagg_case_checks(device) -> None:
         edges = np.array([-0.0, 0.0, np.inf, -np.inf, 1.5, -2.5],
                          np.float32)
         e = edges[rng.integers(0, edges.size, n)]
-        e_aggs = CASE_AGGS[:5] + (("mne", "e", "min"), ("mxe", "e", "max"))
         case("f32_signed_zero_inf", keys % 7, valid, ivals(n), fvals(n),
-             domain, e_aggs, {"e": t(e)})
+             domain, SIGNED_AGGS, {"e": t(e)})
         zeros = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
         case("f32_zeros_only", keys % 5, valid, ivals(n), fvals(n), domain,
-             e_aggs, {"e": t(zeros)})
+             SIGNED_AGGS, {"e": t(zeros)})
         # slices of longer tensors: one odd element offset for all, then
         # offsets that disagree (the scalar path)
         K, V = t(rng.integers(-3, domain + 3, n + 8).astype(np.int32)), \
@@ -976,6 +992,34 @@ def seg_preagg_case_checks(device) -> None:
         keys = rng.integers(-3, domain + 3, n).astype(np.int32)
         case("32_aggs", keys, rng.random(n) < 0.9, ivals(n), fvals(n),
              domain, aggs32)
+    # the global route's lane fold, warp merge and sector skipping
+    for name, (keys, valid, vals, domain, aggs) in global_cases(n).items():
+        if ops.seg_preagg_route(domain, 6) != "global":
+            raise AssertionError(f"global case {name}: domain {domain} "
+                                 f"takes the shared route")
+        extra = {c: t(x) for c, x in vals.items() if c not in ("i", "f")}
+        case(f"global_{name}", keys, valid, vals["i"], vals["f"], domain,
+             aggs, extra)
+    # calls shorter than the valid bytes' unaligned head, on slices: the
+    # global route must take element loads (a vector load there faults)
+    width = 16 + max(max(c[1:]) for c in short_slice_cases())
+    V, I, F = t(rng.random(width) < 0.8), t(ivals(width)), t(fvals(width))
+    for label, K in (("sorted", t(np.sort(rng.integers(0, 4, width))
+                                  .astype(np.int32))),
+                     ("random", t(rng.integers(-3, GLOBAL_DOMAIN + 3, width)
+                                  .astype(np.int32)))):
+        for n, ok, ov, oi in short_slice_cases():
+            k, v = K[ok:ok + n], V[ov:ov + n]
+            vals = {"i": I[oi:oi + n], "f": F[oi:oi + n]}
+            what = f"global_short_slice {label} n={n} offsets={ok},{ov},{oi}"
+            got = ops.seg_preagg(k, v, vals, GLOBAL_DOMAIN, CASE_AGGS)
+            _seg_equal(got, ops.seg_preagg_plain(k, v, vals, GLOBAL_DOMAIN,
+                                                 CASE_AGGS), CASE_AGGS, what)
+            _f32_order_check(got, k, v, vals, GLOBAL_DOMAIN, CASE_AGGS, what)
+    _say("check", kernel="seg_preagg", case="global_short_slices",
+         calls=2 * len(short_slice_cases()), n="8-15", domain=GLOBAL_DOMAIN,
+         route=ops.seg_preagg_route(GLOBAL_DOMAIN, 6), exact=True,
+         f32_minmax_bitwise=True)
 
 
 def rle_case_checks(device) -> None:
@@ -1101,7 +1145,9 @@ def seg_preagg_rows(capture, launched: int, device):
     relative gap to the float64 sum (``f64_rel_err``,
     ``plain_f64_rel_err``).
     One JSON row per shape, timed on the query's own aggregates, with the
-    launches of that shape in the main-path run."""
+    launches of that shape in the main-path run; the library call
+    (``index_add_`` of the first summed column, or of the count) carries
+    its device ms from the same padded traces as the kernel's."""
     import torch
     from repro_torch.kernels import ops
     calls = sum(c for c, _ in capture.shapes.values())
@@ -1155,6 +1201,9 @@ def seg_preagg_rows(capture, launched: int, device):
         else:
             lib_in, lib_dtype = valid.to(torch.int32), torch.int32
         call = lambda: ops.seg_preagg(keys, valid, values, domain, aggs)
+        library = lambda: torch.zeros(domain, dtype=lib_dtype,
+                                      device=device).index_add_(
+            0, kidx, lib_in)
         route = ops.seg_preagg_route(domain, n_out - 1)
         row = {
             "name": "seg_preagg", "route": "cuda",
@@ -1167,10 +1216,9 @@ def seg_preagg_rows(capture, launched: int, device):
             "bound_ms": _bound_ms(_seg_bound_bytes(valid, len(cols),
                                                    domain, n_out)),
             "bound_by": "bytes",
-            "library_ms": _time_ms(lambda: torch.zeros(
-                domain, dtype=lib_dtype, device=device).index_add_(
-                    0, kidx, lib_in)),
+            "library_ms": _time_ms(library),
             "kernel_device_ms": _kernel_device_ms(call, "seg_preagg"),
+            "library_device_ms": _kernel_device_ms(library, ""),
             "fold_device_ms": _kernel_device_ms(call, "seg_preagg",
                                                 exclude="init"),
             "f64_rel_err": gap, "plain_f64_rel_err": plain_gap,
@@ -1188,6 +1236,7 @@ def seg_preagg_rows(capture, launched: int, device):
              fold_device_ms=_fmt(row["fold_device_ms"]),
              plain_ms=f"{row['plain_ms']:.4f}",
              library_ms=f"{row['library_ms']:.4f}",
+             library_device_ms=_fmt(row["library_device_ms"]),
              bound_ms=f"{row['bound_ms']:.6f}")
     return rows
 
@@ -1359,6 +1408,119 @@ def fold_cases():
     return out
 
 
+GLOBAL_DOMAIN = 150_000       # Q5 and Q7's packed domain: the global route
+
+
+def global_cases(n: int, domain: int = GLOBAL_DOMAIN):
+    """name -> (keys, valid, {column: values}, domain, aggregates) of
+    ``n`` rows, int32 column "i" and f32 columns "f" (and "e"): the
+    inputs that break ``seg_preagg``'s global route (lane fold, warp
+    merge, sector skipping) quietly.  Phase 3 runs them on the card
+    at n = 1,000,003 and domain 150,000; tests/test_torch_global_fold.py
+    holds a numpy model of the route against the reference on them at a
+    small n and a domain the Pallas kernel takes."""
+    rng = np.random.default_rng(5)
+    row = np.arange(n)
+    ints = lambda: rng.integers(-2**31, 2**31, n, dtype=np.int64) \
+        .astype(np.int32)
+    # small whole numbers: every f32 sum here is exact in any order
+    small = lambda: rng.integers(0, 16, n).astype(np.float32)
+    # runs that end exactly at, and one row past, lane (8-row) and warp
+    # (256-row) edges, and at the 16- and 512-row edges twice those
+    brk = (row % 256 < 2) | ((row % 8 < 2) & (rng.random(n) < 0.25))
+    edges = (np.cumsum(brk) - 1).astype(np.int32)
+    sorted_keys = np.sort(rng.integers(0, domain, n)).astype(np.int32)
+    # half the 32-byte sectors full, the other half one valid row each, at
+    # every position of the sector in turn
+    sector = row // 8
+    half = (sector % 2 == 0) | (row % 8 == (sector // 2) % 8)
+    # keys past both ends inside runs of 0 and of domain - 1: clipping
+    # merges them into those runs
+    ood = np.sort(np.r_[np.zeros(n // 4), np.full(n // 4, domain - 1),
+                        rng.integers(0, domain, n - 2 * (n // 4))]
+                  ).astype(np.int64)
+    lo_run, hi_run = ood == 0, ood == domain - 1
+    ood[lo_run & (rng.random(n) < 0.3)] = -1
+    ood[lo_run & (rng.random(n) < 0.1)] = I32_MIN
+    ood[hi_run & (rng.random(n) < 0.3)] = domain
+    ood[hi_run & (rng.random(n) < 0.1)] = I32_MAX
+    signed = np.array([-0.0, 0.0, np.inf, -np.inf, 1.5, -2.5], np.float32)
+    cases = {
+        "runs_at_lane_and_warp_edges": (edges, np.ones(n, bool), ints(),
+                                        domain),
+        "one_key_every_row": (np.full(n, domain // 2),
+                              rng.random(n) < 0.9, ints(), domain),
+        "distinct_key_every_row": (row % domain, rng.random(n) < 0.9,
+                                   ints(), domain),
+        "random_domain_150000": (rng.integers(-3, GLOBAL_DOMAIN + 3, n),
+                                 rng.random(n) < 0.9, ints(), GLOBAL_DOMAIN),
+        "all_invalid": (sorted_keys, np.zeros(n, bool), ints(), domain),
+        "half_valid_sectors": (sorted_keys, half, ints(), domain),
+        "out_of_range_inside_runs": (ood, rng.random(n) < 0.95, ints(),
+                                     domain),
+        "int_sums_wrap": (np.sort(rng.integers(0, 3, n)), np.ones(n, bool),
+                          (2**30 + rng.integers(0, 1000, n)).astype(np.int32),
+                          domain),
+        "f32_signed_zero_inf": (np.sort(rng.integers(0, 7, n)),
+                                rng.random(n) < 0.9, ints(), domain),
+    }
+    out = {}
+    for name, (k, v, i, d) in cases.items():
+        vals, aggs = {"i": i, "f": small()}, CASE_AGGS
+        if name == "f32_signed_zero_inf":       # min / max over the signs
+            vals["e"] = signed[rng.integers(0, signed.size, n)]
+            aggs = SIGNED_AGGS
+        out[name] = (np.asarray(k, np.int64).astype(np.int32), v, vals, d,
+                     aggs)
+    return out
+
+
+def short_slice_cases():
+    """(n, keys offset, valid offset, values offset), in elements, of
+    short ``seg_preagg`` calls on slices: n = 8-15 rows with the valid
+    bytes 1-7 bytes past a 16-byte boundary, so the head that would align
+    them is as a rule longer than the call, and the keys and values at
+    offsets 0-3, every alignment of 4-byte words.  Phase 3 runs them on
+    the global route; tests/test_torch_global_fold.py's model checks that
+    no vector load there is misaligned."""
+    return [(n, ok, ov, ok) for n in range(8, 16) for ov in range(1, 8)
+            for ok in range(4)]
+
+
+def filter_cases():
+    """name -> (segments [(run values, run lengths), ...], lo, hi) for
+    ``rle_filter_agg_many``: rows of R = 0, 1, 4, 33 and 128 runs (one row
+    spread over several lanes, several rows a warp, a warp striding over
+    a row), segments of different R in one launch, empty segments, more
+    segments than one launch takes (70), and int32 and f32 values and
+    lengths.  Values are multiples of 0.25 and lengths at most 9, so every
+    sum is exact in any order."""
+    rng = np.random.default_rng(6)
+
+    def seg(nb, R, v_float=False, l_float=False):
+        v = rng.integers(-20, 280, (nb, R)) / (4.0 if v_float else 1.0)
+        n = rng.integers(0, 10, (nb, R))
+        return (v.astype(np.float32 if v_float else np.int32),
+                n.astype(np.float32 if l_float else np.int32))
+
+    return {
+        "R1": ([seg(5, 1), seg(40, 1, True), seg(3, 1)], 2.0, 60.0),
+        "R4_phase5": ([seg(123, 4) for _ in range(3)], 10.0, 40.0),
+        "R33": ([seg(10, 33, True), seg(7, 33, False, True)], -3.0, 50.5),
+        "R128": ([seg(4, 128, True, True), seg(6, 128)], 0.0, 70.0),
+        "mixed_R_one_launch": ([seg(7, 3), seg(9, 17, True), seg(2, 40),
+                                seg(33, 2, False, True)], 5.0, 30.0),
+        "empty_segments": ([seg(3, 4), seg(0, 4), seg(5, 4), seg(0, 0),
+                            seg(2, 0), seg(0, 40, True)], 2.0, 60.0),
+        "70_segments": ([seg(int(rng.integers(0, 20)),
+                             int(rng.choice([1, 2, 3, 4, 5, 8, 16, 31, 32,
+                                             33, 64])),
+                             bool(rng.integers(0, 2)),
+                             bool(rng.integers(0, 2)))
+                         for _ in range(70)], -5.0, 45.0),
+    }
+
+
 def _offset_copy(t):
     """``t`` as a contiguous tensor whose data starts 4 bytes past a
     16-byte boundary: the kernels' element-wise load path."""
@@ -1374,9 +1536,11 @@ def api_case_checks(device) -> None:
     plain version and ``np.isin`` of the padded build side, and
     ``onehot_groupby`` against its plain version, counts exactly and sums
     within rtol 1e-5; each on aligned inputs and on a copy off 16-byte
-    alignment."""
+    alignment; then ``rle_filter_agg_many`` on ``filter_cases`` against
+    its plain version and the per-segment ``rle_filter_agg`` calls,
+    exactly."""
     import torch
-    from repro_torch.kernels import hash_groupby, sip_probe
+    from repro_torch.kernels import hash_groupby, ops, sip_probe
     n_probe = 0
     for name, (keys, build) in probe_cases().items():
         padded = np.r_[build, np.full((-len(build)) % 128, -1, np.int32)]
@@ -1416,7 +1580,23 @@ def api_case_checks(device) -> None:
             worst = max(worst, float(
                 ((got[..., 1] - want[..., 1]).abs()
                  / want[..., 1].abs().clamp_min(1e-30)).max()))
+    n_filter = 0
+    for name, (segs, lo, hi) in filter_cases().items():
+        segs = [(torch.as_tensor(v, device=device),
+                 torch.as_tensor(n, device=device)) for v, n in segs]
+        got = ops.rle_filter_agg_many(segs, lo=lo, hi=hi)
+        n_filter += 1
+        want = ops.rle_filter_agg_many_plain(segs, lo=lo, hi=hi)
+        each = torch.cat([ops.rle_filter_agg(v, n, lo=lo, hi=hi)
+                          for v, n in segs])
+        for label, other in (("plain version", want),
+                             ("per-segment calls", each)):
+            if not torch.equal(got, other):
+                raise AssertionError(f"rle_filter_agg_many case {name}: "
+                                     f"differs from the {label}")
     torch.cuda.synchronize()
+    _say("check", kernel="rle_filter_agg", edge_cases=len(filter_cases()),
+         list_calls=n_filter, plain="exact", per_segment_calls="exact")
     _say("check", kernel="semijoin_probe", edge_cases=len(probe_cases()),
          launches=n_probe, offsets="0,4", plain="match", np_isin="match")
     _say("check", kernel="onehot_groupby", edge_cases=len(fold_cases()),
@@ -1484,7 +1664,7 @@ def kernel_api_phase(db, fact, dim, capture, device):
 
     # ---- the path: every launch below is counted
     ops.reset_launch_counts()
-    filt = {q: [ops.rle_filter_agg(rv, rl, lo=lo, hi=hi) for rv, rl in runs]
+    filt = {q: ops.rle_filter_agg_many(runs, lo=lo, hi=hi)
             for q, (lo, hi) in intervals.items()}
     decoded = []
     for col, a in dr:
@@ -1510,6 +1690,10 @@ def kernel_api_phase(db, fact, dim, capture, device):
     missing = [k for k in API_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels.ops phase never launched: {missing}")
+    if launches["rle_filter_agg"] != len(intervals):
+        raise AssertionError(f"rle_filter_agg launched "
+                             f"{launches['rle_filter_agg']} times, not once "
+                             f"per interval over the whole scan")
     if sum(onehot_launches.values()) != launches["onehot_groupby"]:
         raise AssertionError(f"onehot_groupby launches by query "
                              f"{onehot_launches} do not add up to "
@@ -1521,19 +1705,29 @@ def kernel_api_phase(db, fact, dim, capture, device):
         errs[name] = max(errs[name], float(
             (got.double() - want.double()).abs().max()))
 
-    # ---- rle_filter_agg: numpy's count, sum and max of l_shipdate
+    # ---- rle_filter_agg: the whole scan split by container equals the
+    # per-container calls and the plain version, and numpy's count, sum
+    # and max of l_shipdate (every partial sum stays below 2^24: exact)
     sd = fact["l_shipdate"]
     for q, (lo, hi) in intervals.items():
+        whole = filt[q]
+        if not torch.equal(whole, ops.rle_filter_agg_many_plain(
+                runs, lo=lo, hi=hi)):
+            raise AssertionError(f"rle_filter_agg_many {q} differs from its "
+                                 f"plain version")
         cnt = tot = 0
         mx = -np.inf
-        for c, (rv, rl), got in zip(li, runs, filt[q]):
+        per_container = whole.split([rv.shape[0] for rv, _ in runs])
+        for c, (rv, rl), got in zip(li, runs, per_container):
             want = ops.rle_filter_agg_plain(rv, rl, lo=lo, hi=hi)
             # -inf in the max of a block with no passing run on both sides
             worst("rle_filter_agg", torch.nan_to_num(got),
                   torch.nan_to_num(want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"rle_filter_agg {q} differs from its "
-                                     f"plain version")
+            if not (torch.equal(got, want) and torch.equal(
+                    got, ops.rle_filter_agg(rv, rl, lo=lo, hi=hi))):
+                raise AssertionError(f"rle_filter_agg {q}: a container of "
+                                     f"the whole scan differs from its own "
+                                     f"call or the plain version")
             g = got.cpu().numpy().astype(np.float64)
             cnt += g[:, 0].sum()
             tot += g[:, 1].sum()
@@ -1554,22 +1748,36 @@ def kernel_api_phase(db, fact, dim, capture, device):
                                  f" {sd[m].max()})")
         _say("check", kernel="rle_filter_agg", query=q, lo=lo, hi=hi,
              rows=int(cnt), sum=int(tot), max=int(mx), numpy="match",
-             plain="match")
+             plain="match", per_container_calls="match")
     rv, rl = runs[0]
     lo, hi = intervals["Q3"]
+    note = "no single PyTorch call computes the masked count, sum and max " \
+           "per block"
     row = _api_row(
         "rle_filter_agg", "rle_filter_agg.cu",
         "src/repro/kernels/rle_scan_agg.py:56",
         lambda: ops.rle_filter_agg(rv, rl, lo=lo, hi=hi),
         lambda: ops.rle_filter_agg_plain(rv, rl, lo=lo, hi=hi), None,
         "rle_filter_agg_kernel", rv.numel() * 8 + rv.shape[0] * 12,
-        f"runs {tuple(rv.shape)} [61, 119]; launch-bound",
+        f"runs {tuple(rv.shape)} [61, 119], one container; launch-bound",
         launches=launches["rle_filter_agg"],
-        max_abs_err=errs["rle_filter_agg"],
-        library_note="no single PyTorch call computes the masked count, "
-                     "sum and max per block")
+        max_abs_err=errs["rle_filter_agg"], library_note=note)
     rows.append(row)
-    _say_row(row, containers=len(li), exact=True)
+    _say_row(row, containers=1, exact=True)
+    n_runs = sum(v.numel() for v, _ in runs)
+    n_rows = sum(v.shape[0] for v, _ in runs)
+    row = _api_row(
+        "rle_filter_agg", "rle_filter_agg.cu",
+        "src/repro/kernels/rle_scan_agg.py:56",
+        lambda: ops.rle_filter_agg_many(runs, lo=lo, hi=hi),
+        lambda: ops.rle_filter_agg_many_plain(runs, lo=lo, hi=hi), None,
+        "rle_filter_agg_kernel", n_runs * 8 + n_rows * 12,
+        f"whole scan: {len(runs)} containers, {n_rows} blocks, {n_runs} "
+        f"runs, [61, 119], one launch",
+        launches=launches["rle_filter_agg"],
+        max_abs_err=errs["rle_filter_agg"], library_note=note)
+    rows.append(row)
+    _say_row(row, containers=len(runs), exact=True)
 
     # ---- delta_decode: bit for bit the host decode of o_orderkey
     for (col, a), (deltas, got) in zip(dr, decoded):

@@ -3,7 +3,7 @@
 the main path's and phase 5's.
 
     python3 scripts/torch_groupby_ab.py [--root TREE] [--tag NAME]
-        [--kernels seg_preagg,rle,onehot,semijoin]
+        [--kernels seg_preagg,rle,filter,onehot,semijoin]
 
 ``--root`` is the checkout whose ``src/repro_torch`` runs (this one by
 default), so two versions compare on one card by running the script
@@ -12,10 +12,18 @@ seed 0:
 
 * ``seg_preagg`` at the row counts, domains, valid shares and aggregates
   of chip_smoke's Q2, Q3, Q6, Qorders, Q5 and Q7 calls (keys sorted where
-  the main path's are: l_suppkey within a day);
+  the main path's are: l_suppkey within a day; Q7 with random valid rows,
+  and "Q7-clustered" with the main path's: l_suppkey < 10 in containers
+  sorted on (l_shipdate, l_suppkey)), and of phase 10's shared
+  Q4 (the unpruned scan: l_shipdate sorted within each of 12 containers,
+  every row valid, domain 65,536, the global route), and of phase 9's
+  segmented Q7 ("seg-Q7": 4 shards' rows in one call, keys
+  ``shard * 150,000 + o_custkey``, about 20 % of the rows valid in runs
+  as Q7-clustered's, an approximation of the pruned slabs);
 * ``rle_grouped_agg`` over 12 segments of (123, 4) runs at domain 365, one
   segment alone and all twelve (one call where the tree has the list
-  form, else one call per segment);
+  form, else one call per segment), and ``rle_filter_agg`` over the same
+  runs in [61, 119] the same two ways;
 * ``onehot_groupby`` at phase 5's Q3 (253 x 4096, domain 100, 12
   containers' l_suppkey each sorted within a day, rows outside the dates
   keyed -1, int values) and
@@ -42,7 +50,7 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = ("seg_preagg", "rle", "onehot", "semijoin")
+GROUPS = ("seg_preagg", "rle", "filter", "onehot", "semijoin")
 
 
 def main() -> int:
@@ -70,8 +78,8 @@ def main() -> int:
         return {"library_event_ms": cs._time_ms(fn, reps=50, warmup=5),
                 "library_device_ms": cs._kernel_device_ms(fn, "")}
 
-    build.build_all(("seg_preagg", "rle_grouped_agg", "onehot_groupby",
-                     "semijoin_probe"))
+    build.build_all(("seg_preagg", "rle_grouped_agg", "rle_filter_agg",
+                     "onehot_groupby", "semijoin_probe"))
     rng = np.random.default_rng(0)
     dev = "cuda"
     out = {"tag": args.tag, "root": os.path.abspath(args.root),
@@ -83,11 +91,32 @@ def main() -> int:
             ("Qorders", 753_664, 365, False, 0.995,
              (("n", "*", "count"), ("s", "v", "sum"))),
             ("Q5", 6_033_408, 150_000, False, 0.16, (("s", "f", "sum"),)),
-            ("Q7", 6_000_640, 150_000, False, 0.1, (("c", "*", "count"),))):
+            ("Q7", 6_000_640, 150_000, False, 0.1, (("c", "*", "count"),)),
+            ("Q7-clustered", 6_000_640, 150_000, False, "suppkey",
+             (("c", "*", "count"),)),
+            ("serve-Q4", 6_033_408, 65_536, "containers", 1.0,
+             (("c", "*", "count"),)),
+            ("seg-Q7", 2_920_448, 600_000, "shards", "suppkey-20",
+             (("c", "*", "count"),))):
         keys = rng.integers(0, domain, n).astype(np.int32)
-        if is_sorted:
+        if is_sorted == "shards":         # shard * 150,000 + o_custkey
+            keys = (np.arange(n) // (n // 4) * (domain // 4)
+                    + rng.integers(0, domain // 4, n)).astype(np.int32)
+        elif is_sorted == "containers":   # l_shipdate, sorted in each of
+            keys = np.concatenate([np.sort(p) for p in np.array_split(
+                rng.integers(0, 365, n), 12)]).astype(np.int32)
+        elif is_sorted:
             keys = np.sort(keys)
-        valid = torch.as_tensor(rng.random(n) < p_valid, device=dev)
+        if str(p_valid).startswith("suppkey"):  # Q7's l_suppkey < 10
+            below = int(p_valid[8:] or 10)        # (or < 20), in 12
+            ok = []                       # containers sorted on
+            for part in np.array_split(np.arange(n), 12):  # (day, supp)
+                day = rng.integers(0, 365, len(part))
+                supp = rng.integers(0, 100, len(part))
+                ok.append(supp[np.lexsort((supp, day))] < below)
+            valid = torch.as_tensor(np.concatenate(ok), device=dev)
+        else:
+            valid = torch.as_tensor(rng.random(n) < p_valid, device=dev)
         keys = torch.as_tensor(keys, device=dev)
         vals = {"v": torch.as_tensor(rng.integers(0, 50, n)
                                      .astype(np.int32), device=dev),
@@ -117,6 +146,16 @@ def main() -> int:
         out["index_add_365_event_ms"] = cs._time_ms(lambda: torch.zeros(
             365, dtype=torch.int32, device=dev).index_add_(0, k, v),
             reps=50, warmup=5)
+    if "filter" in groups:
+        out["filter_one"] = measure(
+            lambda: ops.rle_filter_agg(*segs[0], lo=61.0, hi=119.0),
+            "rle_filter_agg")
+        if hasattr(ops, "rle_filter_agg_many"):
+            whole = lambda: ops.rle_filter_agg_many(segs, lo=61.0, hi=119.0)
+        else:
+            whole = lambda: [ops.rle_filter_agg(*s, lo=61.0, hi=119.0)
+                             for s in segs]
+        out["filter_whole"] = measure(whole, "rle_filter_agg")
 
     # ---- onehot_groupby at phase 5's shapes
     # Q3: the scan of 12 containers, each sorted on (l_shipdate,

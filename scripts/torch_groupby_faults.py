@@ -6,8 +6,10 @@ checks.
 
 For each case of ``FAULTS`` (all of them, or those named), ``src/repro_torch``
 and ``chip_smoke.py`` are copied into a temporary directory, the fault is
-written into the copy's ``kernels/csrc/<source>``, and a child process run
-in the copy builds the kernels and runs chip_smoke's checks of them, on a
+written into the copy's ``kernels/csrc/<source>`` (``seg_preagg.cu``'s
+shared and global routes, ``rle_grouped_agg.cu``, ``rle_filter_agg.cu``'s
+segment table, ``semijoin_probe.cu``, ``onehot_groupby.cu``), and a
+child process run in the copy builds the kernels and runs chip_smoke's checks of them, on a
 database of a quarter of SF1 (1,500,000 lineitem and 375,000 orders rows):
 phase 3's ``kernel_checks`` (the one-container and the whole-scan
 ``rle_grouped_agg`` rows), ``seg_preagg_case_checks`` and
@@ -45,11 +47,27 @@ FAULTS = {
     "min_init_zero": ("seg_preagg.cu",
                       [("kind == AGG_MIN ? 0x7f800000", "kind == AGG_MIN ? 0"),
                        ("kind == AGG_MIN ? INT_MAX", "kind == AGG_MIN ? 0")]),
+    # the global route's warp merge never sends the run its last
+    # non-empty lane ends in
+    "merge_drops_warp_last_run": (
+        "seg_preagg.cu",
+        [("    r.emit_tail = m && !(above && kf_above == r.kl);",
+          "    r.emit_tail = m && above && kf_above != r.kl;")]),
+    # the global route skips a sector whose only valid row is its last
+    "sector_skip_drops_row": (
+        "seg_preagg.cu",
+        [("    if (!m) return;                     // the sector holds no",
+          "    if (!(m & 0x7fu)) return;           // the sector holds no")]),
     # each call leaves its last run segment out
     "drop_last_segment": ("rle_grouped_agg.cu",
                           [("const long long total = segs.start[n_segs];",
                             "const long long total = "
                             "segs.start[n_segs > 1 ? n_segs - 1 : n_segs];")]),
+    # rle_filter_agg writes each segment after the first one row early
+    "segment_offset_off_by_one": (
+        "rle_filter_agg.cu",
+        [("    segs.out_row[s] = rows;",
+          "    segs.out_row[s] = rows > 0 ? rows - 1 : 0;")]),
     # the probe gives up when the next slot is empty, before it has
     # compared the current one: a key at the end of its chain is missed
     "probe_stops_one_slot_early": (

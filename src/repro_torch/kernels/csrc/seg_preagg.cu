@@ -10,12 +10,13 @@
 // lane 0 the count: the shared-route kernel before its grid-wide barrier,
 // else seg_preagg_init_kernel on the same stream.
 //
-// Bound on the H100: bytes -- each row is read once (key, mask, one value
-// per aggregate) and each output written once -- and, below that, atomics:
-// with one global atomic per valid row and aggregate, a small domain puts
-// thousands of updates on each address and L2 serialises them.  Two routes,
-// both in this file, chosen by the wrapper (seg_preagg.py::
-// seg_preagg_route):
+// Bound on the H100: bytes -- the mask once, the keys and values of the
+// 32-byte sectors that hold a valid row, and each output written once --
+// and, below that, atomics: with one atomic per valid row and aggregate,
+// a hot key puts thousands of updates on one address and L2 (or the
+// shared-memory bank) serialises them, so both routes fold runs of equal
+// keys in registers first.  Two routes, both in this file, chosen by the
+// wrapper (seg_preagg.py::seg_preagg_route):
 //
 // * shared (the table fits in shared memory): a persistent grid sized by
 //   occupancy.  Each CTA keeps R replicas of a key-major table
@@ -32,9 +33,30 @@
 //   are written by the same launch and a grid-wide barrier after the row
 //   walk orders them before the flush: one launch per call.  Int sums
 //   wrap in every step, so the result is exact mod 2^32.
-// * global (the table does not fit, e.g. domain 150,000): a grid-stride
-//   loop with one global atomic per valid row and aggregate; at such
-//   domains contention is low.
+// * global (the table does not fit, e.g. domain 150,000): each lane takes
+//   8 consecutive rows (one 32-byte sector of keys or of a value column),
+//   so a warp takes 256 (one tile), over a grid-stride loop of tiles.  A
+//   lane reads its 8 valid bytes in one load, then its keys and each value
+//   column only if one of its rows is valid: a chunk with no valid row
+//   reads only its mask, and a tile with none skips the rest.  It folds its
+//   runs of equal clipped keys in registers and sends each interior run
+//   straight to a global atomic; its first and last runs go into a
+//   segmented scan across the warp (__shfl_up_sync, a head flag wherever a
+//   lane's run does not continue the previous non-empty lane's last run),
+//   so a run of equal keys that crosses lanes costs one atomic per warp
+//   and aggregate.  A warp in which no lane's first run continues the lane
+//   below's last (random keys, as a rule) skips the scan: each lane sends
+//   its runs itself.  Sorted keys (a shared Q4 over the unpruned scan) send
+//   about one atomic per distinct key and warp instead of one per row,
+//   which L2 serialised on a hot address; random keys fold nothing and
+//   send no more atomics than valid rows.  Rows off the aligned vector
+//   range (a head, a tail, or every row when the pointers disagree on
+//   alignment or n is shorter than the valid bytes' unaligned head) take
+//   element loads of the same chunk layout and the same fold.  8-row
+//   lanes in CTAs of 2 warps at 48 registers beat 16-row lanes (up to 112
+//   registers) and 4-row lanes on random keys, where the fold saves
+//   nothing and occupancy hides the loads' latency, and 4-row lanes on
+//   sorted ones (PERF.md, the kernel table and its findings).
 //
 // Float min/max: float_atomics.cuh's ordered-int trick, in shared and in
 // global memory alike; ``ordered`` below is the same order in registers
@@ -86,36 +108,6 @@ __global__ void seg_preagg_init_kernel(int domain,
   for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < domain;
        k += gridDim.x * blockDim.x)
     row[k] = v;
-}
-
-// ------------------------------------------------------------ global route
-
-__global__ void seg_preagg_kernel(const int32_t* __restrict__ keys,
-                                  const bool* __restrict__ valid,
-                                  long long n, int domain,
-                                  const __grid_constant__ AggSpecs specs,
-                                  int32_t* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    if (!valid[i]) continue;
-    int k = keys[i];
-    k = k < 0 ? 0 : (k >= domain ? domain - 1 : k);
-    atomicAdd(&out[k], 1);
-    for (int a = 0; a < specs.n; ++a) {
-      int32_t* o = out + (long long)(1 + a) * domain + k;
-      if (specs.is_float[a]) {
-        const float v = ((const float*)specs.vals[a])[i];
-        if (specs.kind[a] == AGG_SUM) atomicAdd((float*)o, v);
-        else if (specs.kind[a] == AGG_MIN) atomic_min_f32((float*)o, v);
-        else atomic_max_f32((float*)o, v);
-      } else {
-        const int32_t v = ((const int32_t*)specs.vals[a])[i];
-        if (specs.kind[a] == AGG_SUM) atomicAdd(o, v);   // wraps mod 2^32
-        else if (specs.kind[a] == AGG_MIN) atomicMin(o, v);
-        else atomicMax(o, v);
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------------ shared route
@@ -318,6 +310,226 @@ seg_preagg_shared_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+// ------------------------------------------------------------ global route
+
+constexpr int kGlobalThreads = 64;      // 2 warps per CTA
+constexpr int kGlobalBlocksPerSm = 20;  // 40 warps an SM: 48 registers
+constexpr int kLaneRows = 8;            // rows a lane folds (a 32-byte
+                                        // sector of int32); a warp 256
+constexpr unsigned kFull = 0xffffffffu;
+
+// Four valid bytes as four mask bits: each nonzero byte to 1, then one
+// multiply gathers the four into the top byte, byte 0 lowest.
+__device__ __forceinline__ unsigned nibble(unsigned w) {
+  return (__vsetne4(w, 0u) * 0x01020408u) >> 24;
+}
+
+// The 8 words of a lane's chunk at rows [r0, r0 + 8), read only where the
+// mask ``m`` has a valid row: the whole sector in two 16-byte loads on
+// the vector range, else the valid rows one by one.  Unread words are 0.
+__device__ __forceinline__ void load_chunk(const int32_t* __restrict__ p,
+                                           long long r0, unsigned m,
+                                           bool vec,
+                                           int32_t (&x)[kLaneRows]) {
+#pragma unroll
+  for (int i = 0; i < kLaneRows; ++i) x[i] = 0;
+  if (vec) {
+    if (!m) return;                     // the sector holds no valid row
+    const int4* q = reinterpret_cast<const int4*>(p + r0);
+    const int4 a = __ldg(q), b = __ldg(q + 1);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLaneRows; ++i)
+      if ((m >> i) & 1u) x[i] = __ldg(p + r0 + i);
+  }
+}
+
+// What one tile's run structure tells each lane, shared by every
+// aggregate: its first and last run's keys, its number of runs, whether
+// its first run continues the previous non-empty lane's last run
+// (``joins``), whether the run its carry ends in stops at this lane
+// (``emit_tail``: no later non-empty lane continues it), and the steps of
+// the segmented scan at which it combines with the lane 2^s below.
+struct LaneRuns {
+  int kf, kl, nruns;
+  unsigned steps;
+  bool joins, emit_tail;
+};
+
+// One aggregate of a tile: the lane folds its runs of the values ``v``
+// (``count``: 1 a row) and sends them to ``out`` (the aggregate's
+// (domain,) row of words).  MERGE false: no lane's first run continues the
+// lane below's last, so every run goes straight to an atomic.  MERGE true:
+// interior runs go at once, and the warp merges first and last runs
+// across lanes.  A lane's carry is its last run (its only run, if it has
+// one; the identity, if none); the scan makes it the whole run of equal
+// keys that ends at this lane.  A lane with two or more runs sends its
+// first run, joined to the carry of the lane below where the keys agree;
+// a lane whose carry's run stops here sends the carry.
+template <int KIND, bool FLOAT, bool MERGE>
+__device__ __forceinline__ void fold_tile(const int (&k)[kLaneRows],
+                                          unsigned m, unsigned starts,
+                                          const int32_t (&v)[kLaneRows],
+                                          bool count, const LaneRuns& r,
+                                          int32_t* __restrict__ out) {
+  int32_t acc = identity_bits(KIND, FLOAT), first = acc;
+  int cur = 0, seen = 0;
+#pragma unroll
+  for (int i = 0; i < kLaneRows; ++i) {
+    if (!((m >> i) & 1u)) continue;
+    const int32_t x = count ? 1 : v[i];
+    if ((starts >> i) & 1u) {
+      if (!MERGE && seen) update<KIND, FLOAT>(out + cur, acc);
+      else if (seen == 1) first = acc;
+      else if (seen > 1) update<KIND, FLOAT>(out + cur, acc);   // interior
+      ++seen;
+      cur = k[i];
+      acc = x;
+    } else {
+      acc = combine<KIND, FLOAT>(acc, x);
+    }
+  }
+  if (!MERGE) {
+    if (seen) update<KIND, FLOAT>(out + cur, acc);
+    return;
+  }
+  int32_t carry = acc;
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int32_t below = __shfl_up_sync(kFull, carry, 1 << s);
+    if ((r.steps >> s) & 1u) carry = combine<KIND, FLOAT>(below, carry);
+  }
+  const int32_t before = __shfl_up_sync(kFull, carry, 1);
+  if (r.nruns > 1)
+    update<KIND, FLOAT>(out + r.kf,
+                        r.joins ? combine<KIND, FLOAT>(before, first)
+                                : first);
+  if (r.emit_tail) update<KIND, FLOAT>(out + r.kl, carry);
+}
+
+template <bool MERGE>
+__device__ __forceinline__ void fold_dyn(int kind, int is_float,
+                                         const int (&k)[kLaneRows],
+                                         unsigned m, unsigned starts,
+                                         const int32_t (&v)[kLaneRows],
+                                         const LaneRuns& r, int32_t* out) {
+  if (is_float) {
+    if (kind == AGG_SUM)
+      fold_tile<AGG_SUM, true, MERGE>(k, m, starts, v, false, r, out);
+    else if (kind == AGG_MIN)
+      fold_tile<AGG_MIN, true, MERGE>(k, m, starts, v, false, r, out);
+    else
+      fold_tile<AGG_MAX, true, MERGE>(k, m, starts, v, false, r, out);
+  } else {
+    if (kind == AGG_SUM)
+      fold_tile<AGG_SUM, false, MERGE>(k, m, starts, v, false, r, out);
+    else if (kind == AGG_MIN)
+      fold_tile<AGG_MIN, false, MERGE>(k, m, starts, v, false, r, out);
+    else
+      fold_tile<AGG_MAX, false, MERGE>(k, m, starts, v, false, r, out);
+  }
+}
+
+// Every aggregate of a tile: the count, then each value column, loaded
+// only where the lane has a valid row.
+template <bool MERGE>
+__device__ __forceinline__ void fold_aggs(long long r0, bool vec,
+                                          const int (&k)[kLaneRows],
+                                          unsigned m, unsigned starts,
+                                          const LaneRuns& r, int domain,
+                                          const AggSpecs& specs,
+                                          int32_t* __restrict__ out) {
+  int32_t v[kLaneRows];
+  fold_tile<AGG_SUM, false, MERGE>(k, m, starts, v, true, r, out);
+  for (int a = 0; a < specs.n; ++a) {
+    load_chunk((const int32_t*)specs.vals[a], r0, m, vec, v);
+    fold_dyn<MERGE>(specs.kind[a], specs.is_float[a], k, m, starts, v, r,
+                    out + (long long)(1 + a) * domain);
+  }
+}
+
+// Chunk c is rows [base + 8 c, base + 8 c + 8); ``aligned``: the chunks
+// inside [0, n) take vector loads (base is then the row ``head`` at which
+// the valid bytes reach a 16-byte boundary and every pointer is aligned,
+// less the whole chunks that fit before it, less one more chunk if a part
+// of one does).  Tile t is chunks [32 t, 32 t + 32), one per lane, walked
+// grid-stride by the warps.
+__global__ void __launch_bounds__(kGlobalThreads, kGlobalBlocksPerSm)
+seg_preagg_global_kernel(const int32_t* __restrict__ keys,
+                         const uint8_t* __restrict__ valid, long long n,
+                         long long base, int aligned, int domain,
+                         const __grid_constant__ AggSpecs specs,
+                         int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long n_chunks = (n - base + kLaneRows - 1) / kLaneRows;
+  const long long n_tiles = (n_chunks + 31) >> 5;
+  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+       t < n_tiles; t += step) {
+    const long long r0 = base + (t * 32 + lane) * kLaneRows;
+    const bool vec = aligned && r0 >= 0 && r0 + kLaneRows <= n;
+    unsigned m = 0;
+    if (vec) {
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(valid + r0));
+      m = nibble(b.x) | nibble(b.y) << 4;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kLaneRows; ++i) {
+        const long long row = r0 + i;
+        if (row >= 0 && row < n && valid[row]) m |= 1u << i;
+      }
+    }
+    const unsigned nonempty = __ballot_sync(kFull, m != 0);
+    if (!nonempty) continue;                    // the whole tile invalid
+
+    int k[kLaneRows];
+    load_chunk(keys, r0, m, vec, k);
+    LaneRuns r;
+    r.kf = 0;
+    unsigned starts = 0;
+    int prev = 0;
+#pragma unroll
+    for (int i = 0; i < kLaneRows; ++i) {
+      if (!((m >> i) & 1u)) continue;
+      k[i] = k[i] < 0 ? 0 : (k[i] >= domain ? domain - 1 : k[i]);
+      if (!starts) r.kf = k[i];
+      if (!starts || k[i] != prev) starts |= 1u << i;
+      prev = k[i];
+    }
+    r.kl = prev;
+    r.nruns = __popc(starts);
+    // the nearest non-empty lanes below and above this one
+    const unsigned below = nonempty & ((1u << lane) - 1u);
+    const int kl_below = __shfl_sync(kFull, r.kl,
+                                     below ? 31 - __clz(below) : lane);
+    r.joins = m && below && r.kf == kl_below;
+    // no run crosses a lane edge (random keys, as a rule): no merge
+    if (!__any_sync(kFull, r.joins)) {
+      fold_aggs<false>(r0, vec, k, m, starts, r, domain, specs, out);
+      continue;
+    }
+    const unsigned above = nonempty & ~((2u << lane) - 1u);
+    const int kf_above = __shfl_sync(kFull, r.kf,
+                                     above ? __ffs(above) - 1 : lane);
+    r.emit_tail = m && !(above && kf_above == r.kl);
+    // a lane heads a segment of the scan unless it is empty (it passes
+    // the carry below on) or its one run continues the lane below's
+    unsigned head = m && !(r.nruns == 1 && r.joins);
+    r.steps = 0;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const unsigned h = __shfl_up_sync(kFull, head, 1 << s);
+      if (lane >= (1 << s)) {
+        if (!head) r.steps |= 1u << s;
+        head |= h;
+      }
+    }
+    fold_aggs<true>(r0, vec, k, m, starts, r, domain, specs, out);
+  }
+}
+
 // The shared route's largest resident grid for a table of ``smem`` bytes
 // on the current device: occupancy times SMs, with the opt-in above 48 KB
 // made first.  Cached per (device, smem) under a lock, as the wrappers may
@@ -389,12 +601,27 @@ extern "C" int seg_preagg_launch(const void* keys, const void* valid,
     if (e != cudaSuccess || n == 0) return (int)e;
   }
 
+  // the vector range: the head that aligns the valid bytes to 16, if the
+  // keys and every value column are aligned at the same row
+  const long long head16 = (long long)((16 - ((uintptr_t)valid & 15)) & 15);
+  const long long head = head16 > n ? n : head16;
+  bool aligned = (((uintptr_t)keys + 4 * head) & 15) == 0;
+  for (int a = 0; a < n_aggs; ++a)
+    aligned = aligned && (((uintptr_t)vals[a] + 4 * head) & 15) == 0;
+
   if (replicas == 0) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
+    // a lane's vector load of 8 valid bytes needs them 8-byte aligned,
+    // which a head clamped to n does not give: such a call (n < 16) takes
+    // element loads throughout
+    const bool vec = aligned && head16 <= n;
+    const long long base =
+        vec && head % kLaneRows ? head % kLaneRows - kLaneRows : 0;
+    const long long tiles = ((n - base + kLaneRows - 1) / kLaneRows + 31) / 32;
+    long long blocks = (tiles * 32 + kGlobalThreads - 1) / kGlobalThreads;
     if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond
-    seg_preagg_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-        (const int32_t*)keys, (const bool*)valid, n, domain, specs, o);
+    seg_preagg_global_kernel<<<(unsigned)blocks, kGlobalThreads, 0, st>>>(
+        (const int32_t*)keys, (const uint8_t*)valid, n, base, (int)vec,
+        domain, specs, o);
     return (int)cudaGetLastError();
   }
 
@@ -402,14 +629,6 @@ extern "C" int seg_preagg_launch(const void* keys, const void* valid,
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   int grid_cap = 0;
   if ((e = shared_grid_cap(smem, &grid_cap)) != cudaSuccess) return (int)e;
-
-  // the vector range: the head that aligns the valid bytes to 16, if the
-  // keys and every value column are aligned at the same row
-  long long head = (long long)((16 - ((uintptr_t)valid & 15)) & 15);
-  if (head > n) head = n;
-  bool aligned = (((uintptr_t)keys + 4 * head) & 15) == 0;
-  for (int a = 0; a < n_aggs; ++a)
-    aligned = aligned && (((uintptr_t)vals[a] + 4 * head) & 15) == 0;
   const long long vec_begin = aligned ? head : n;
   const long long vec_end = aligned ? head + ((n - head) & ~15LL) : n;
   const long long units = ((vec_end - vec_begin) >> 4) +

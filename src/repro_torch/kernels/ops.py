@@ -12,7 +12,8 @@ the kept blocks of a list of streams in one launch and counts under
 ``bitunpack``; ``gather_unpack`` is torch indexing, as the reference's is
 jnp), ``seg_preagg`` (the engine's dense GROUP BY), ``rle_grouped_agg``
 -- the three the query path runs -- and
-``rle_filter_agg``, ``onehot_groupby``, ``semijoin_probe`` and
+``rle_filter_agg`` (``rle_filter_agg_many`` takes a list of run segments
+in one launch and counts under ``rle_filter_agg``), ``onehot_groupby``, ``semijoin_probe`` and
 ``delta_decode``, which only this entry point reaches, as in the
 reference, and ``flash_attention``, which the port's LM prefill calls
 here for its causal self-attention (models/transformer.py).
@@ -39,7 +40,8 @@ from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain,
                               flash_attention_plain, flash_attention_train)
 from .hash_groupby import onehot_groupby, onehot_groupby_plain
-from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_plain,
+from .rle_scan_agg import (rle_filter_agg, rle_filter_agg_many,
+                           rle_filter_agg_many_plain, rle_filter_agg_plain,
                            rle_grouped_agg, rle_grouped_agg_many,
                            rle_grouped_agg_many_plain, rle_grouped_agg_plain)
 from .seg_preagg import seg_preagg, seg_preagg_plain, seg_preagg_route
@@ -75,6 +77,7 @@ __all__ = ["Segment", "bitunpack", "bitunpack_plain",
            "flash_attention_train",
            "gather_unpack", "launch_counts", "onehot_groupby",
            "onehot_groupby_plain", "reset_launch_counts", "rle_filter_agg",
+           "rle_filter_agg_many", "rle_filter_agg_many_plain",
            "rle_filter_agg_plain", "rle_grouped_agg", "rle_grouped_agg_many",
            "rle_grouped_agg_many_plain", "rle_grouped_agg_plain",
            "seg_preagg", "seg_preagg_plain", "seg_preagg_route",

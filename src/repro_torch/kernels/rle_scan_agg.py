@@ -25,7 +25,13 @@ passing run reads ``[0, 0, -inf]``.
 * ``rle_filter_agg``       -- the wrapper: the CUDA kernel
   (csrc/rle_filter_agg.cu) for CUDA tensors, the plain version for CPU
   tensors.
-* ``rle_filter_agg_plain`` -- the same function in plain PyTorch.
+* ``rle_filter_agg_many``  -- the same over a list of run segments (one
+  per container), their outputs concatenated in order: one kernel launch
+  for every ``_MAX_SEGS`` segments.  ``rle_filter_agg`` is its
+  one-segment case, through an entry point that takes that segment's
+  pointers as scalars.
+* ``rle_filter_agg_plain`` / ``rle_filter_agg_many_plain`` -- the same
+  functions in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -38,22 +44,31 @@ import torch
 from . import build
 
 _POS, _NEG = 3.4e38, -3.4e38      # finite sentinels, as in the reference
-_MAX_SEGS = 64                    # RLE_MAX_SEGS in the source
+_MAX_SEGS = 64                    # RLE_MAX_SEGS and RLE_FILTER_MAX_SEGS
 
 grouped_launches = 0    # kernel launches by ``rle_grouped_agg(_many)``
-filter_launches = 0     # kernel launches by ``rle_filter_agg``
+filter_launches = 0     # kernel launches by ``rle_filter_agg(_many)``
 
 # rle_grouped_agg_launch(n_segs, keys[], lengths[], values[], n_runs[],
 #                        domain, lo, hi, init, out, stream)
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-# rle_filter_agg_launch(values, lengths, values_float, lengths_float,
-#                       n_blocks, n_runs, lo, hi, out, stream)
-_FILTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-_grouped_fn = None      # the entry point, looked up at the first launch
+# rle_filter_agg_launch(n_segs, values[], lengths[], flags[], nb[], runs[],
+#                       lo, hi, out, stream)
+_FILTER_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                    ctypes.c_void_p]
+# rle_filter_agg_launch1(values, lengths, flags, nb, runs, lo, hi, out,
+#                        stream): one segment, no arrays
+_FILTER1_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+_grouped_fn = None      # the entry points, looked up at the first launch
+_filter_fn = None
+_filter1_fn = None
+_LANES = (torch.int32, torch.float32)   # the lanes the filter kernel reads
 _ARRAYS = threading.local()     # the entry point's pointer arrays
 
 Segment = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
@@ -222,21 +237,113 @@ def rle_filter_agg_plain(run_values: torch.Tensor, run_lengths: torch.Tensor,
     return torch.stack([cnt, s, mx], dim=1)
 
 
+def rle_filter_agg_many_plain(segments: Sequence[Tuple[torch.Tensor,
+                                                      torch.Tensor]], *,
+                              lo: float, hi: float) -> torch.Tensor:
+    """Plain version of the list form: the segments' outputs concatenated
+    in order."""
+    segments = _filter_segments(segments)
+    return torch.cat([rle_filter_agg_plain(rv, rl, lo=lo, hi=hi)
+                      for rv, rl in segments])
+
+
+def _filter_segments(segments) -> list:
+    """Segments as (run_values, run_lengths) pairs of one (nb, R) shape."""
+    segments = [(seg[0], seg[1]) for seg in segments]
+    if not segments:
+        raise ValueError("rle_filter_agg: no run segments")
+    for rv, rl in segments:
+        if rv.dim() != 2 or rl.shape != rv.shape:
+            raise ValueError(f"rle_filter_agg: run values "
+                             f"{tuple(rv.shape)} and lengths "
+                             f"{tuple(rl.shape)} must be one (nb, R)")
+    return segments
+
+
+def _launch_filter_many(segments, lo: float, hi: float) -> torch.Tensor:
+    global filter_launches, _filter_fn
+    if _filter_fn is None:
+        _filter_fn = build.entry("rle_filter_agg", "rle_filter_agg_launch",
+                                 _FILTER_ARGTYPES)
+    arrays = getattr(_ARRAYS, "filter", None)   # per thread: the call
+    if arrays is None:                          # releases the GIL
+        ptrs, ints = ctypes.c_void_p * _MAX_SEGS, ctypes.c_int * _MAX_SEGS
+        arrays = _ARRAYS.filter = (ptrs(), ptrs(), ints(), ints(), ints())
+    vals_p, lengths_p, flags, nbs, runs = arrays
+    # int32 and f32 lanes pass as they are, anything else is read as f32
+    # (the reference casts before it computes); one pass checks devices
+    # and layout, as build.require_cuda does, at a few host us a segment
+    dev = segments[0][0].device
+    flat, total = [], 0
+    for rv, rl in segments:
+        if rv.dtype not in _LANES:
+            rv = rv.to(torch.float32)
+        if rl.dtype not in _LANES:
+            rl = rl.to(torch.float32)
+        if rv.device != dev or rl.device != dev:
+            raise ValueError(f"rle_filter_agg: tensors on {rv.device}, "
+                             f"{rl.device} and {dev}")
+        if not (rv.is_contiguous() and rl.is_contiguous()):
+            rv, rl = rv.contiguous(), rl.contiguous()
+        flat.append((rv, rl))
+        total += rv.size(0)
+    out = torch.empty((total, 3), dtype=torch.float32, device=dev)
+    stream = build.stream_ptr(dev)
+    row = 0
+    for start in range(0, len(flat), _MAX_SEGS):
+        part = flat[start:start + _MAX_SEGS]
+        rows = 0
+        for i, (rv, rl) in enumerate(part):
+            vals_p[i], lengths_p[i] = rv.data_ptr(), rl.data_ptr()
+            flags[i] = (rv.dtype == torch.float32) | \
+                (rl.dtype == torch.float32) << 1
+            nbs[i], runs[i] = rv.shape
+            rows += nbs[i]
+        if rows:
+            build.check(_filter_fn(len(part), vals_p, lengths_p, flags, nbs,
+                                   runs, lo, hi,
+                                   out.data_ptr() + row * 12, stream),
+                        "rle_filter_agg")
+            filter_launches += 1
+        row += rows
+    return out
+
+
 def _launch_filter(run_values, run_lengths, lo: float, hi: float):
-    global filter_launches
+    """The one-segment call: its pointers pass as scalars, with no list
+    and no segment arrays to fill."""
+    global filter_launches, _filter1_fn
     rv, v_float = build.int32_or_f32(run_values)
     rl, l_float = build.int32_or_f32(run_lengths)
     build.require_cuda("rle_filter_agg", rv, rl)
     nb, n_runs = rv.shape
     out = torch.empty((nb, 3), dtype=torch.float32, device=rv.device)
     if nb:
-        fn = build.entry("rle_filter_agg", "rle_filter_agg_launch",
-                         _FILTER_ARGTYPES)
-        build.check(fn(rv.data_ptr(), rl.data_ptr(), v_float, l_float, nb,
-                       n_runs, lo, hi, out.data_ptr(),
-                       build.stream_ptr(rv.device)), "rle_filter_agg")
+        if _filter1_fn is None:
+            _filter1_fn = build.entry("rle_filter_agg",
+                                      "rle_filter_agg_launch1",
+                                      _FILTER1_ARGTYPES)
+        build.check(_filter1_fn(rv.data_ptr(), rl.data_ptr(),
+                                v_float | l_float << 1, nb, n_runs, lo, hi,
+                                out.data_ptr(), build.stream_ptr(rv.device)),
+                    "rle_filter_agg")
         filter_launches += 1
     return out
+
+
+def rle_filter_agg_many(segments: Sequence[Tuple[torch.Tensor,
+                                                 torch.Tensor]], *,
+                        lo: float, hi: float) -> torch.Tensor:
+    """``[(run_values, run_lengths), ...]``, each (nb_i, R_i) -> the
+    segments' (nb_i, 3) f32 ``[count, sum, max]`` rows concatenated in
+    order, as ``torch.cat`` of ``rle_filter_agg`` over them.  CUDA
+    tensors launch the kernel once per ``_MAX_SEGS`` segments (or raise);
+    CPU tensors take the plain version."""
+    segments = _filter_segments(segments)
+    lo, hi = float(lo), float(hi)
+    if segments[0][0].is_cuda:
+        return _launch_filter_many(segments, lo, hi)
+    return rle_filter_agg_many_plain(segments, lo=lo, hi=hi)
 
 
 def rle_filter_agg(run_values: torch.Tensor, run_lengths: torch.Tensor, *,

@@ -11,7 +11,7 @@ The reference's 1024-key cap is a TPU VMEM bound, not part of the
 contract: the CUDA kernels (csrc/seg_preagg.cu) take any domain up to the
 planner's dense limit, by one of two routes (``seg_preagg_route``): a
 table privatised per CTA in shared memory where it fits, global atomics
-where it does not.
+where it does not (after each warp has folded its runs of equal keys).
 
 * ``seg_preagg``       -- the wrapper: the CUDA kernel for CUDA tensors,
   the plain version for CPU tensors.
