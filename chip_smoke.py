@@ -131,7 +131,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
    from the prefill cache against a prefill of S + 1 tokens (max |logit
    gap| < 0.5, tests/test_models.py's tolerance) and the prefill through
    the plain attention instead of the kernel (< 0.5); then one profile
-   of a prefill and of a decode step (device kernels only);
+   of a prefill and of a decode step (device kernels only).  Then the
+   int8 KV cache on the same weights (``kv_quant=True``): its path at 4
+   x 512 (+32) with its own launch count (``arch=qwen3-4b-int8``: 36),
+   decode ms a step beside the bf16 cache's, the cache's bytes, peak
+   memory; its prefill cache must equal ``quantize_kv`` of the bf16
+   prefill's bit for bit, and one decode step's written slot
+   ``quantize_kv`` of the step's own k and v in every layer and of the
+   bf16 step's slot in layer 0, every other slot unchanged, the logits
+   finite (their gap to the bf16 step's printed beside the logit std);
+   its profiles.  Then starcoder2-7b (32 layers, d 4608, gelu, 36 query
+   heads over 4 kv heads: the kernel at G = 9) and olmoe-1b-7b (16
+   layers, 64 experts, top 8, 16 query heads over 16 kv heads: G = 1),
+   each freed before the next is built, each at 4 x 512 (+32) only:
+   the counted path (``flash_attention`` once per layer, nothing else),
+   the kernel against its plain version in every layer, a JSON row,
+   decode against a prefill of S + 1 (for olmoe held only where neither
+   prefill dropped a (token, k) pair: a dropped pair makes a token's
+   output depend on the batch), the prefill through the plain attention
+   (< 0.5), the profiles; olmoe also prints a ``[moe]`` line per
+   prefill (capacity, dropped pairs per layer, largest and smallest
+   expert load).  ``[lm] arch=... seconds=`` closes each model;
 9. segmented execution (``segmented_phase``; it runs after phase 7 and
    before phase 8, and frees its databases first) on 4 logical shards of
    the card (``make_query_mesh(4)``): Q1-Q7 and Qorders on the main
@@ -230,7 +250,8 @@ the trace holds every launch of its calls; ``launches``:
 the run of the kernel's path -- the main path, phase 6 for the
 whole-scan bitunpack row, phase 5 for the four kernels only ``ops``
 reaches, phase 9's SF1 runs for the ``seg-`` seg_preagg rows, phase 10
-for the ``serve-`` rows, phase 8's prefill shape, or one training
+for the ``serve-`` rows, phase 8's prefill shape of that model, or one
+training
 step for ``flash_attention_bwd``), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails and prints no result.
@@ -255,6 +276,10 @@ API_KERNELS = ("rle_filter_agg", "onehot_groupby", "semijoin_probe",
 PREPASS_BLOCK = 4096            # rows per onehot_groupby block row
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
 LM_ARCH = "qwen3-4b"
+# phase 8's other models, served at LM_SERVE after qwen3-4b: the dense
+# config with a gelu MLP and 9 query heads a kv head, and the MoE family
+# (16 query heads over 16 kv heads)
+LM_FAMILY = ("starcoder2-7b", "olmoe-1b-7b")
 # the LM path's two prefill shapes: (batch, prompt tokens, new tokens)
 LM_SERVE = (4, 512, 32)
 LM_LONG = (1, 4096, 2)
@@ -3397,29 +3422,71 @@ def flash_sass() -> None:
                                  f"{others}")
 
 
-def lm_phase(device):
-    """Phase 8: qwen3-4b at full width on the card.  Returns the
-    flash_attention JSON rows."""
+class MoeCapture:
+    """Records each MoE layer's dispatch while it is open: it wraps
+    ``models.moe.dispatch_plan``, the name ``_moe_apply_scatter`` calls,
+    and keeps per call the capacity, the (token, k) pairs dropped and each
+    expert's load (pairs routed to it).  It reads counts back to the host
+    in every layer, so it stays off the timed path."""
+
+    def __init__(self):
+        self.calls = []          # (capacity, dropped pairs, load per expert)
+        self._inner = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._inner = inner = moe.dispatch_plan
+
+        def wrapped(experts, m, cap):
+            pos, keep = inner(experts, m, cap)
+            load = torch.bincount(experts.reshape(-1),
+                                  minlength=m.num_experts)
+            self.calls.append((cap, int((~keep).sum()), load.tolist()))
+            return pos, keep
+        moe.dispatch_plan = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.dispatch_plan = self._inner
+
+    def dropped(self):
+        return [c[1] for c in self.calls]
+
+
+def _lm_model(arch, device, kv_quant=False):
+    """The config of ``arch`` at its published width, its model on the
+    card, and bf16 weights from seed 0; returns (cfg, model, params,
+    seconds to build)."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     from repro_torch.models import build_model
-    cfg = configs.get(LM_ARCH)
-    flash_sass()
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
-    model = build_model(cfg, tp=1, device=device)
+    model = build_model(cfg, tp=1, device=device, kv_quant=kv_quant)
     params = model.init_params(seed=0)              # bf16, from the seed
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = {shape: torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, shape[:2]), dtype=torch.int32,
-        device=device) for shape in (LM_SERVE, LM_LONG)}
-    serve.generate(model, params, prompts[LM_SERVE][:, :64], 2)  # warm-up
+    return cfg, model, params, time.perf_counter() - t0
 
-    # ---- the path: every launch below is counted; nothing is captured,
-    # so each generation's peak memory is what serving holds
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(cache))
+
+
+def lm_path(model, params, prompts, init_s, label):
+    """The LM path of one model: ``serve.generate`` on each prompt with
+    the counters zeroed just before and read just after, nothing
+    captured, so each generation's peak memory is what serving holds.
+    ``flash_attention`` must launch once per layer and prefill, and
+    nothing else.  Prints the ``[launches]`` and ``[lm]`` lines; returns
+    the generations and each one's flash launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = model.cfg
+    first = next(iter(prompts.values()))
+    serve.generate(model, params, first[:, :64], 2)          # warm-up
     gens, peaks, flash = {}, {}, {}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -3431,52 +3498,79 @@ def lm_phase(device):
         flash[shape] = ops.launch_counts()["flash_attention"] - before
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    _say("launches", path="lm", **{k: v for k, v in launches.items() if v})
+    _say("launches", path="lm", arch=label,
+         **{k: v for k, v in launches.items() if v})
     others = {k: v for k, v in launches.items()
               if v and k != "flash_attention"}
     if any(n != cfg.n_layers for n in flash.values()) or others:
-        raise AssertionError(f"LM path launches {launches}: expected "
-                             f"flash_attention once per layer and prefill")
+        raise AssertionError(f"LM path ({label}) launches {launches}: "
+                             f"expected flash_attention once per layer "
+                             f"and prefill")
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     for (B, S, n_new), gen in gens.items():
         ids = gen.tokens
         if tuple(ids.shape) != (B, n_new) or int(ids.min()) < 0 or \
                 int(ids.max()) >= cfg.vocab_size:
-            raise AssertionError(f"generate {B}x{S}: tokens {ids.shape} "
-                                 f"out of [0, {cfg.vocab_size})")
+            raise AssertionError(f"generate {label} {B}x{S}: tokens "
+                                 f"{ids.shape} out of [0, {cfg.vocab_size})")
         steps = max(gen.decode_steps, 1)
-        _say("lm", arch=cfg.name, params=model.n_params, batch=B, prompt=S,
+        kv_bytes = _cache_bytes(_decl_cache(model, B, S + n_new))
+        _say("lm", arch=label, params=model.n_params, batch=B, prompt=S,
              new_tokens=n_new, init_s=f"{init_s:.2f}",
              prefill_ms=f"{gen.prefill_s * 1e3:.3f}",
              prefill_tok_per_s=f"{B * S / gen.prefill_s:.1f}",
              decode_ms_per_step=f"{gen.decode_s * 1e3 / steps:.3f}",
              decode_tok_per_s=f"{B * gen.decode_steps / gen.decode_s:.1f}"
              if gen.decode_steps else "none",
-             weights_gb=f"{weights / 1e9:.3f}",
+             weights_gb=f"{weights / 1e9:.3f}", kv_cache_bytes=kv_bytes,
              flash_launches=flash[(B, S, n_new)],
              max_memory_allocated_gib=f"{peaks[(B, S, n_new)] / 2**30:.3f}",
              first_tokens=json.dumps(ids[0, :8].tolist()))
+    return gens, flash
 
-    # ---- the same prefills again with every layer's kernel inputs
-    # captured, then the kernel against its plain version on each; one
-    # shape at a time, so the captured tensors are freed in between
-    rows = []
+
+def _decl_cache(model, batch, max_len):
+    """The cache ``model.cache_decls`` declares, as meta tensors (shapes
+    and dtypes, no memory)."""
+    import torch
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tree[0], dtype=tree[2], device="meta")
+    return meta(model.cache_decls(batch, max_len))
+
+
+def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None):
+    """Each prefill again with every layer's kernel inputs captured (its
+    first token must equal the generation's), the kernel against its
+    plain version on each layer, and one flash JSON row per prompt shape;
+    one shape at a time, so the captured tensors are freed in between.
+    With ``moe`` (a list), each prefill's ``MoeCapture`` calls are added
+    to it."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg = model.cfg
     K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
         cfg.resolved_head_dim
+    rows = []
     for (B, S, n_new), gen in gens.items():
-        with FlashCapture() as capture:
+        with FlashCapture() as capture, MoeCapture() as mcap:
             logits, _ = model.prefill(params, {"tokens": prompts[
                 (B, S, n_new)]}, max_len=S + n_new)
+        if moe is not None:
+            moe.append((f"prefill_{B}x{S}", mcap.calls))
         calls = capture.calls.get((B, K, G, S, d), [])
         if len(calls) != cfg.n_layers or len(capture.calls) != 1:
             raise AssertionError(
-                f"prefill {B}x{S}: flash calls "
+                f"prefill {label} {B}x{S}: flash calls "
                 f"{ {k: len(c) for k, c in capture.calls.items()} }, "
                 f"expected {cfg.n_layers} of q {(B, K, G, S, d)}")
         first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         if not torch.equal(first, gen.tokens[:, 0]):
-            raise AssertionError(f"prefill {B}x{S}: the captured run's "
-                                 f"first tokens differ from the path's")
+            raise AssertionError(f"prefill {label} {B}x{S}: the captured "
+                                 f"run's first tokens differ from the "
+                                 f"path's")
         per = [_flash_check(ops.flash_attention(q, k, v, causal=c),
                             ops.flash_attention_plain(q, k, v, causal=c),
                             "bfloat16") for q, k, v, c in calls]
@@ -3485,18 +3579,27 @@ def lm_phase(device):
                  "median_abs_want": min(p["median_abs_want"] for p in per)}
         q, k, v, c = calls[0]
         row = _flash_row(q, k, v, c, flash[(B, S, n_new)], stats,
-                         f"prefill {B}x{S}: q {tuple(q.shape)} k "
+                         f"{label} prefill {B}x{S}: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} bf16 causal")
         rows.append(row)
-        _say_row(row, layers=len(calls),
+        _say_row(row, arch=label, layers=len(calls),
                  max_abs_err=f"{stats['max_abs_err']:.3g}",
                  limit_share=f"{stats['limit_share']:.3g}",
                  min_median_abs_want=f"{stats['median_abs_want']:.3g}",
                  bound_by=row["bound_by"],
                  bound_share=_fmt(row["bound_share"]))
         del capture, calls, per, q, k, v
-    # ---- extra cases: ragged S, f32, and the bf16 kernel's other code
-    # paths (head dims 64 and 96, no causal mask with S != T)
+    return rows
+
+
+def flash_extra_cases(cfg, device) -> None:
+    """The kernel against its plain version beyond the model's shapes:
+    ragged S, f32, and the bf16 kernel's other code paths (head dims 64
+    and 96, no causal mask with S != T)."""
+    import torch
+    from repro_torch.kernels import ops
+    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
     g = torch.Generator(device=device).manual_seed(7)
     for name, qs, ks, dt, causal in (
             ("ragged S=500", (1, K, G, 500, d), (1, K, 1, 500, d),
@@ -3519,18 +3622,38 @@ def lm_phase(device):
              limit_share=f"{st['limit_share']:.3g}",
              median_abs_want=f"{st['median_abs_want']:.3g}")
 
-    # ---- decode from the prefill cache against a prefill of S + 1 tokens:
-    # decode takes the plain attend_full, the prefill the kernel
+
+def lm_decode_checks(model, params, rng, label, moe=None):
+    """Decode from a prefill cache against a prefill of S + 1 tokens
+    (decode takes the plain ``attend_full``, the prefill the kernel; max
+    |logit gap| < 0.5), then that prefill through the kernel against the
+    plain attention (< 0.5), at ``LM_SERVE``.  An MoE model (``moe``, a
+    list that receives both prefills' ``MoeCapture`` calls) holds the
+    first only where neither prefill dropped a (token, k) pair: a drop
+    makes a token's output depend on the rest of the batch.  Returns the
+    prefill cache and the tokens, for a decode step's profile."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg = model.cfg
     B, S, _ = LM_SERVE
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
-                          dtype=torch.int32, device=device)
-    _, cache = model.prefill(params, {"tokens": tok[:, :S]}, max_len=S + 4)
+                          dtype=torch.int32, device=model.device)
+    with MoeCapture() as short:
+        _, cache = model.prefill(params, {"tokens": tok[:, :S]},
+                                 max_len=S + 4)
     ld, _ = model.decode_step(params, cache, tok[:, S:], S)
-    lf, _ = model.prefill(params, {"tokens": tok})
+    with MoeCapture() as full:
+        lf, _ = model.prefill(params, {"tokens": tok})
     gap = float((ld - lf).abs().max())
-    if not (torch.isfinite(ld).all() and torch.isfinite(lf).all()) \
-            or gap >= 0.5:
-        raise AssertionError(f"decode vs prefill of S + 1: {gap:.4g}")
+    finite = bool(torch.isfinite(ld).all() and torch.isfinite(lf).all())
+    dropped = sum(short.dropped()) + sum(full.dropped())
+    if moe is not None:
+        moe += [(f"prefill_{B}x{S}", short.calls),
+                (f"prefill_{B}x{S + 1}", full.calls)]
+    held = dropped == 0
+    if not finite or (held and gap >= 0.5):
+        raise AssertionError(f"{label} decode vs prefill of S + 1: {gap:.4g}"
+                             f" (finite: {finite})")
     # ---- the prefill through the kernel against the plain version
     kernel_logits = lf
     inner = ops.flash_attention
@@ -3543,36 +3666,205 @@ def lm_phase(device):
     plain_gap = float((kernel_logits - plain_logits).abs().max())
     agree = int((kernel_logits[:, -1].argmax(-1)
                  == plain_logits[:, -1].argmax(-1)).sum())
-    if plain_gap >= 0.5:
-        raise AssertionError(f"prefill logits, kernel vs plain attention: "
-                             f"{plain_gap:.4g}")
+    if plain_gap >= 0.5 or not torch.isfinite(plain_logits).all():
+        raise AssertionError(f"{label} prefill logits, kernel vs plain "
+                             f"attention: {plain_gap:.4g}")
     real = lf[..., :cfg.vocab_size].float()       # the padding is masked
-    _say("check", lm="decode_vs_prefill", batch=B, prompt=S,
-         max_abs_logit_gap=f"{gap:.4g}", limit=0.5,
+    _say("check", lm="decode_vs_prefill", arch=label, batch=B, prompt=S,
+         max_abs_logit_gap=f"{gap:.4g}",
+         limit=0.5 if held else f"not_held_{dropped}_pairs_dropped",
          kernel_vs_plain_prefill_gap=f"{plain_gap:.4g}",
          max_abs_logit=f"{float(real.abs().max()):.4g}",
          logit_std=f"{float(real.std()):.4g}",
          argmax_agree=f"{agree}/{B}")
+    return cache, tok
 
-    # ---- where a prefill's and a decode step's device time goes
+
+def lm_profiles(model, params, prompt, cache, tok, label) -> None:
+    """Where a prefill's and a decode step's device time goes."""
+    B, S, _ = LM_SERVE
     step = lambda: model.decode_step(params, cache, tok[:, S:], S)
     for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
-            params, {"tokens": prompts[LM_SERVE]})), ("decode step", step)):
+            params, {"tokens": prompt})), ("decode step", step)):
         host_ms = _host_ms(fn)
         _, kernels = _profile(fn)
         if not kernels:
-            _say("profile", lm=what.replace(" ", "_"),
+            _say("profile", lm=what.replace(" ", "_"), arch=label,
                  device_ms="not measured")
             continue
         dev_ms = sum(kernels.values())
         flash = sum(v for k2, v in kernels.items()
                     if "flash_attention_kernel" in k2)
         top = sorted(kernels, key=kernels.get, reverse=True)[:6]
-        _say("profile", lm=what.replace(" ", "_"), host_ms=f"{host_ms:.3f}",
+        _say("profile", lm=what.replace(" ", "_"), arch=label,
+             host_ms=f"{host_ms:.3f}",
              kernel_ms=f"{dev_ms:.4f}", busy_share=f"{dev_ms / host_ms:.4f}",
              flash_ms=f"{flash:.4f}", kernels=len(kernels),
              top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
                              for k2 in top}, separators=(",", ":")))
+
+
+def _prompts(cfg, shapes, device, seed=0):
+    import torch
+    rng = np.random.default_rng(seed)
+    return rng, {shape: torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, shape[:2]), dtype=torch.int32,
+        device=device) for shape in shapes}
+
+
+def lm_phase(device):
+    """Phase 8: qwen3-4b at full width on the card (bf16 cache at
+    ``LM_SERVE`` and ``LM_LONG``, then the int8 cache at ``LM_SERVE``),
+    then each of ``LM_FAMILY`` at ``LM_SERVE``, each model freed before
+    the next is built.  Returns the flash_attention JSON rows."""
+    import torch
+    flash_sass()
+    rows = []
+    for arch in (LM_ARCH,) + LM_FAMILY:
+        t0 = time.perf_counter()
+        rows += (lm_qwen(device) if arch == LM_ARCH
+                 else lm_family(arch, device))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _say("lm", arch=arch, seconds=f"{time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def lm_qwen(device):
+    """qwen3-4b: the bf16 cache's path at both shapes, the flash kernel
+    on every layer of both prefills and on its extra cases, decode against
+    prefill, the profiles; then the int8 cache (``lm_int8``)."""
+    cfg, model, params, init_s = _lm_model(LM_ARCH, device)
+    rng, prompts = _prompts(cfg, (LM_SERVE, LM_LONG), device)
+    gens, flash = lm_path(model, params, prompts, init_s, cfg.name)
+    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name)
+    flash_extra_cases(cfg, device)
+    cache, tok = lm_decode_checks(model, params, rng, cfg.name)
+    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
+    del cache
+    lm_int8(model, params, prompts[LM_SERVE], gens[LM_SERVE], device)
+    return rows
+
+
+def lm_int8(model, params, prompt, bf16_gen, device) -> None:
+    """qwen3-4b with the int8 KV cache, on the bf16 model's weights: its
+    path at ``LM_SERVE`` (launches, decode ms a step, KV bytes, peak
+    memory), then, bit for bit, its prefill cache against ``quantize_kv``
+    of the bf16 model's, and one decode step's written slot against
+    ``quantize_kv`` of the step's own k and v in every layer and of the
+    bf16 path's slot in layer 0 (later layers' k and v depend on the
+    cache they attended to); the step's other slots unchanged, its logits
+    finite, and their gap to the bf16 step's beside the logit std."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    label = f"{cfg.name}-int8"
+    qmodel = build_model(cfg, tp=1, device=device, kv_quant=True)
+    gens, _ = lm_path(qmodel, params, {LM_SERVE: prompt}, 0.0, label)
+    B, S, n_new = LM_SERVE
+    step_ms = [g.decode_s * 1e3 / max(g.decode_steps, 1)
+               for g in (gens[LM_SERVE], bf16_gen)]
+    _say("lm", arch=label, kv_cache="int8",
+         decode_ms_per_step=f"{step_ms[0]:.3f}",
+         bf16_decode_ms_per_step=f"{step_ms[1]:.3f}",
+         kv_cache_bytes=_cache_bytes(_decl_cache(qmodel, B, S + n_new)),
+         bf16_kv_cache_bytes=_cache_bytes(_decl_cache(model, B, S + n_new)),
+         same_first_token=bool(torch.equal(gens[LM_SERVE].tokens[:, 0],
+                                           bf16_gen.tokens[:, 0])))
+
+    # ---- the prefill caches: int8 == quantize_kv(bf16), bit for bit
+    _, cache = model.prefill(params, {"tokens": prompt}, max_len=S + n_new)
+    _, qcache = qmodel.prefill(params, {"tokens": prompt},
+                               max_len=S + n_new)
+    got = _cache_bytes(qcache)
+    if got != _cache_bytes(_decl_cache(qmodel, B, S + n_new)):
+        raise AssertionError(f"int8 cache holds {got} bytes, not its "
+                             f"declarations'")
+    for name in ("k", "v"):
+        want_q, want_s = attn.quantize_kv(cache["layers"]["attn"][name])
+        leaf = qcache["layers"]["attn"][name]
+        if not (torch.equal(leaf["q"], want_q)
+                and torch.equal(leaf["s"], want_s)):
+            raise AssertionError(f"int8 prefill cache {name}: not "
+                                 f"quantize_kv of the bf16 prefill's")
+    # ---- one decode step on each cache, the int8 step's k and v captured
+    nxt = prompt[:, -1:]
+    before = {n: {p: t.clone() for p, t in
+                  qcache["layers"]["attn"][n].items()} for n in ("k", "v")}
+    seen = []
+    inner = attn.quantize_kv
+
+    def quantize(x):
+        seen.append(x)
+        return inner(x)
+    attn.quantize_kv = quantize
+    try:
+        lq, _ = qmodel.decode_step(params, qcache, nxt, S)
+    finally:
+        attn.quantize_kv = inner
+    lb, _ = model.decode_step(params, cache, nxt, S)
+    if len(seen) != 2 * cfg.n_layers:
+        raise AssertionError(f"int8 decode step quantized {len(seen)} "
+                             f"tensors, expected k and v of "
+                             f"{cfg.n_layers} layers")
+    for j, name in enumerate(("k", "v")):
+        leaf = qcache["layers"]["attn"][name]
+        for layer in range(cfg.n_layers):
+            wq, ws = inner(seen[2 * layer + j])
+            if not (torch.equal(leaf["q"][layer, :, S:S + 1], wq)
+                    and torch.equal(leaf["s"][layer, :, S:S + 1], ws)):
+                raise AssertionError(f"int8 decode slot {S} of layer "
+                                     f"{layer} {name}: not quantize_kv of "
+                                     f"the step's {name}")
+        bq, bs = inner(cache["layers"]["attn"][name][0, :, S:S + 1])
+        if not (torch.equal(leaf["q"][0, :, S:S + 1], bq)
+                and torch.equal(leaf["s"][0, :, S:S + 1], bs)):
+            raise AssertionError(f"int8 decode slot {S} of layer 0 {name}: "
+                                 f"not quantize_kv of the bf16 path's slot")
+        for part, t in leaf.items():
+            rest = torch.ones(t.shape[2], dtype=torch.bool, device=t.device)
+            rest[S] = False
+            if not torch.equal(t[:, :, rest], before[name][part][:, :, rest]):
+                raise AssertionError(f"int8 decode step changed slots "
+                                     f"other than {S} ({name}/{part})")
+    if not torch.isfinite(lq).all():
+        raise AssertionError("int8 decode logits are not finite")
+    real_q = lq[..., :cfg.vocab_size].float()
+    real_b = lb[..., :cfg.vocab_size].float()
+    gap = float((real_q - real_b).abs().max())
+    agree = int((real_q.argmax(-1) == real_b.argmax(-1)).sum())
+    _say("check", lm="int8_cache", arch=label, prefill_cache="bit_exact",
+         decode_slot="bit_exact", layers=cfg.n_layers,
+         int8_vs_bf16_decode_logit_gap=f"{gap:.4g}",
+         logit_std=f"{float(real_b.std()):.4g}", argmax_agree=f"{agree}/{B}")
+    lm_profiles(qmodel, params, prompt, qcache, torch.cat(
+        [prompt, nxt], dim=1), label)
+
+
+def lm_family(arch, device):
+    """One of ``LM_FAMILY`` at ``LM_SERVE``: its path, the flash kernel on
+    every layer, decode against prefill, the profiles; an MoE model also
+    prints a ``[moe]`` line per prefill (capacity, dropped (token, k)
+    pairs per layer, the largest and smallest expert load)."""
+    cfg, model, params, init_s = _lm_model(arch, device)
+    rng, prompts = _prompts(cfg, (LM_SERVE,), device)
+    gens, flash = lm_path(model, params, prompts, init_s, cfg.name)
+    moe = [] if cfg.moe is not None else None
+    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name, moe)
+    cache, tok = lm_decode_checks(model, params, rng, cfg.name, moe)
+    for what, calls in moe or ():
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"{what}: {len(calls)} MoE dispatches, "
+                                 f"expected {cfg.n_layers}")
+        loads = [n for _, _, load in calls for n in load]
+        _say("moe", arch=cfg.name, prefill=what, experts=cfg.moe.num_experts,
+             top_k=cfg.moe.top_k, capacity=calls[0][0],
+             dropped_per_layer=json.dumps([c[1] for c in calls],
+                                          separators=(",", ":")),
+             max_expert_load=max(loads), min_expert_load=min(loads))
+    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
     return rows
 
 

@@ -19,7 +19,8 @@ outside any Pallas kernel; the prefill's causal self-attention goes to the
 Hopper flash kernel instead (models/transformer.py).  ``cache_update``
 writes the cache in place (the reference returns an updated copy), which
 keeps one cache alive instead of two.  The int8 KV cache
-(``quantize_kv``/``dequantize_kv``) waits for its slice.
+(``quantize_kv``/``dequantize_kv``) keeps the reference's symmetric
+codes and per-token, per-head f32 scales.
 """
 from __future__ import annotations
 
@@ -237,8 +238,30 @@ def attend(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# KV cache (decode)
+# KV cache (decode) -- optionally int8-quantized (one scale per token and
+# head)
 # ---------------------------------------------------------------------------
+
+
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_kv(x: torch.Tensor):
+    """(B,T,K,H) -> (int8 codes, f32 scale (B,T,K,1)); symmetric.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  The
+    reference writes ``max / 127``; compiled, as its model runs it, XLA
+    makes that a product with 1/127 rounded to f32, which differs from the
+    quotient by an ulp of some scales, so the port takes the product."""
+    xf = x.to(torch.float32)
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) * _INV_127,
+                    min=1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * s).to(dtype)
+
 
 def cache_decl_shapes(batch: int, max_len: int, layout: HeadLayout,
                       window: Optional[int]):

@@ -1,7 +1,7 @@
 """build_model(cfg, tp, device=...): the entry point of the training and
 serving paths.
 
-A Model bundles, for the decoder-only dense family:
+A Model bundles, for the decoder-only dense and MoE families:
   decls          -- parameter declarations (shapes + logical axes)
   loss           -- (params, batch) -> scalar   [train]
   prefill        -- (params, batch, max_len) -> (last_logits, cache)
@@ -15,10 +15,14 @@ explicit device: ``init_params`` draws a parameter tree there and
 ``load_params`` checks one against the declarations and the device; the
 caller keeps the tree, and ``prefill`` and ``decode_step`` take it as an
 argument, as the reference's functions do.  ``loss`` takes f32 master
-weights (bf16 compute) and runs the decoder in train mode under the
-model's remat policy.  The MoE, SSM, hybrid, audio and VLM families and
-the int8 KV cache (``kv_quant``) raise ``NotImplementedError`` until
-their slices; the dry-run's ``input_specs`` waits for its.
+weights (bf16 compute), runs the decoder in train mode under the model's
+remat policy and adds the MoE blocks' load-balance loss, as the
+reference's does.  ``kv_quant=True`` gives the int8 KV cache: each
+layer's entry is ``{"k": {"q": int8, "s": f32}, "v": {...}}``, the
+reference's layout, so a reference cache carries across
+(``carry.cache_from_numpy``).  The SSM, hybrid, audio and VLM families
+raise ``NotImplementedError`` until their slices; the dry-run's
+``input_specs`` waits for its.
 """
 from __future__ import annotations
 
@@ -32,24 +36,30 @@ from .layers import embed_lookup, logits_fn, rmsnorm, softmax_xent
 from .params import Decls, count_params, init_params, resolve_device
 from .transformer import CACHE_DTYPE, decoder_decls, run_decoder, segments
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 # ---------------------------------------------------------------------------
 # Cache declaration mirrors (must match block_apply cache structure exactly)
 # ---------------------------------------------------------------------------
 
-def _attn_cache(cfg, tp, batch, max_len, window):
+def _attn_cache(cfg, tp, batch, max_len, window, kv_quant=False):
     layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
                                       cfg.resolved_head_dim, tp)
     shape, axes = attn.cache_decl_shapes(batch, max_len, layout, window)
+    if kv_quant:
+        sshape = shape[:-1] + (1,)
+        entry = {"q": (shape, axes, torch.int8),
+                 "s": (sshape, axes, torch.float32)}
+        return {"k": entry, "v": dict(entry)}
     return {"k": (shape, axes, CACHE_DTYPE), "v": (shape, axes, CACHE_DTYPE)}
 
 
-def _block_cache(cfg, tp, batch, max_len, window):
+def _block_cache(cfg, tp, batch, max_len, window, *, kv_quant=False):
     entry: Dict[str, Any] = {}
     if cfg.n_heads:
-        entry["attn"] = _attn_cache(cfg, tp, batch, max_len, window)
+        entry["attn"] = _attn_cache(cfg, tp, batch, max_len, window,
+                                    kv_quant)
     return entry
 
 
@@ -77,12 +87,13 @@ class Model(torch.nn.Module):
     functions that run a parameter tree held on that device."""
 
     def __init__(self, cfg: ArchConfig, tp: int, device,
-                 remat: str = "minimal"):
+                 remat: str = "minimal", kv_quant: bool = False):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
         self.device = device
         self.remat = remat
+        self.kv_quant = kv_quant
         self.decls: Decls = decoder_decls(cfg, tp)
 
     @property
@@ -122,21 +133,21 @@ class Model(torch.nn.Module):
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         x = embed_lookup(params, tokens, CACHE_DTYPE)
-        x, _ = run_decoder(cfg, self.tp, params, x, mode="train",
-                           positions=_positions(B, S, x.device),
-                           remat_policy=self.remat)
+        x, _, aux = run_decoder(cfg, self.tp, params, x, mode="train",
+                                positions=_positions(B, S, x.device),
+                                remat_policy=self.remat)
         x = rmsnorm(params["ln_f"], x)
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
-        return softmax_xent(logits, labels)     # the dense family: no aux
+        return softmax_xent(logits, labels) + aux
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = embed_lookup(params, tokens, CACHE_DTYPE)
-        x, caches = run_decoder(cfg, self.tp, params, x, mode="prefill",
-                                positions=_positions(B, S, x.device),
-                                max_len=max_len)
+        x, caches, _ = run_decoder(cfg, self.tp, params, x, mode="prefill",
+                                   positions=_positions(B, S, x.device),
+                                   max_len=max_len, kv_quant=self.kv_quant)
         x = rmsnorm(params["ln_f"], x[:, -1:])
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return logits, caches
@@ -150,8 +161,9 @@ class Model(torch.nn.Module):
         x = embed_lookup(params, tokens, CACHE_DTYPE)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        x, caches = run_decoder(cfg, self.tp, params, x, mode="decode",
-                                positions=positions, caches=cache, pos=pos)
+        x, caches, _ = run_decoder(cfg, self.tp, params, x, mode="decode",
+                                   positions=positions, caches=cache,
+                                   pos=pos, kv_quant=self.kv_quant)
         x = rmsnorm(params["ln_f"], x)
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return logits, caches
@@ -160,7 +172,7 @@ class Model(torch.nn.Module):
         out = {}
         for seg in segments(self.cfg):
             entry = _block_cache(self.cfg, self.tp, batch, max_len,
-                                 seg.window)
+                                 seg.window, kv_quant=self.kv_quant)
             out[seg.name] = _stack_cache(entry, seg.n_layers) \
                 if seg.scanned else entry
         return out
@@ -170,17 +182,15 @@ def build_model(cfg: ArchConfig, tp: int = 1, remat: str = "minimal",
                 kv_quant: bool = False, *, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (CUDA unless the caller asks for
     the CPU; CUDA without a GPU raises); ``remat`` is the training
-    path's recompute policy (minimal, dots or none)."""
+    path's recompute policy (minimal, dots or none); ``kv_quant`` gives
+    the int8 KV cache (decode is cache-bandwidth bound)."""
     dev = resolve_device(device, "build_model")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                                   f"not ported yet")
-    if kv_quant:
-        raise NotImplementedError("kv_quant: the int8 KV cache is not "
-                                  "ported yet")
     # serving runs bf16 matmuls; state (for f32 callers) that f32 products
     # stay full f32, never TF32 (the H100's default, set explicitly)
     torch.backends.cuda.matmul.allow_tf32 = False
     if remat not in ("minimal", "dots", "none"):
         raise ValueError(f"remat {remat!r}: minimal, dots or none")
-    return Model(cfg, tp, dev, remat)
+    return Model(cfg, tp, dev, remat, kv_quant)

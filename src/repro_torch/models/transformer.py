@@ -1,35 +1,39 @@
-"""Decoder-only LM assembly for the dense family.
+"""Decoder-only LM assembly for the dense and MoE families.
 
 Layer segmentation: archs with heterogeneous layers (hymba's 3 global-
 attention layers among sliding-window layers) are split into *segments* --
 unstacked singles and stacked runs -- so every stacked run is homogeneous.
 
 Modes:
-  train   -- full sequence, no cache, each block under the remat policy
+  train   -- full sequence, no cache, each block under the remat policy,
+             MoE aux losses accumulated
   prefill -- full sequence, last-position logits + KV cache out
   decode  -- one token against the cache
 
-Mirrors ``src/repro/models/transformer.py`` for the dense family: the
-reference's ``lax.scan`` over a segment's stacked layer dimension is a
-Python loop over it, and parameters and caches keep the reference's
-stacked layout (a leading layers dimension).  One routing decision is the
-port's own: the prefill's causal self-attention over full (unwindowed)
-context goes to ``kernels.ops.flash_attention``, the Hopper kernel that
-replaces the reference's Pallas ``flash_attention``, where the reference
-computes the same function with ``attend``; windowed layers and decode
-take ``attend`` as in the reference.  The kernel keeps P.V in f32 where
-``attend_full`` casts the probabilities to bf16 first: the two differ by
-about one bf16 ulp of the context.  Training sends the same attention
-through ``kernels.ops.flash_attention_train`` (the forward kernel, and
-the port's backward kernel for its gradient).  The reference's remat
-policies (``_remat``) become ``torch.utils.checkpoint`` (non-reentrant,
-one block at a time): "minimal" saves only each block's input, "dots"
-saves the matmul outputs too, "none" recomputes nothing.  A stacked
-segment may also arrive as a list of per-layer trees: the training path
-hands the model per-layer leaves, since the gradient of a layer's view
-of a stacked leaf would allocate a zero tensor of the whole leaf for
-every layer.  MoE, SSM, hybrid and cross-attention blocks wait for their
-slices.
+Mirrors ``src/repro/models/transformer.py`` for the dense and MoE
+families: the reference's ``lax.scan`` over a segment's stacked layer
+dimension is a Python loop over it, and parameters and caches keep the
+reference's stacked layout (a leading layers dimension).  One routing
+decision is the port's own: the prefill's causal self-attention over full
+(unwindowed) context goes to ``kernels.ops.flash_attention``, the Hopper
+kernel that replaces the reference's Pallas ``flash_attention``, where the
+reference computes the same function with ``attend``; windowed layers and
+decode take ``attend`` as in the reference.  The kernel keeps P.V in f32
+where ``attend_full`` casts the probabilities to bf16 first: the two
+differ by about one bf16 ulp of the context.  Training sends the same
+attention through ``kernels.ops.flash_attention_train`` (the forward
+kernel, and the port's backward kernel for its gradient).  The reference's
+remat policies (``_remat``) become ``torch.utils.checkpoint``
+(non-reentrant, one block at a time): "minimal" saves only each block's
+input, "dots" saves the matmul outputs too, "none" recomputes nothing.  A
+stacked segment may also arrive as a list of per-layer trees: the training
+path hands the model per-layer leaves, since the gradient of a layer's
+view of a stacked leaf would allocate a zero tensor of the whole leaf for
+every layer.  With ``kv_quant`` the cache holds int8 codes and f32 scales
+(``attention.quantize_kv``): prefill attends on the unquantized k/v and
+quantizes its cache; decode writes the new step's codes and scales in
+place, then dequantizes the whole cache and attends, as the reference
+does.  SSM, hybrid and cross-attention blocks wait for their slices.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from ..kernels import ops
 from . import attention as attn
 from .layers import (embed_decls, mlp_apply, mlp_decls, rmsnorm,
                      rmsnorm_decl)
+from .moe import moe_apply, moe_decls
 from .params import Decls, ParamDecl
 
 CACHE_DTYPE = torch.bfloat16
@@ -94,13 +99,13 @@ def _stack_decls(decls: Decls, n: int) -> Decls:
 
 
 # ---------------------------------------------------------------------------
-# Generic block (dense)
+# Generic block (dense and MoE)
 # ---------------------------------------------------------------------------
 
 def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
-    if cfg.ssm is not None or cfg.moe is not None or cross:
-        raise NotImplementedError(f"{cfg.name}: only dense blocks are "
-                                  f"ported so far")
+    if cfg.ssm is not None or cross:
+        raise NotImplementedError(f"{cfg.name}: only dense and MoE blocks "
+                                  f"are ported so far")
     d = cfg.d_model
     decls: Decls = {}
     if cfg.n_heads:
@@ -108,7 +113,10 @@ def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
                                           cfg.resolved_head_dim, tp)
         decls["ln1"] = rmsnorm_decl(d)
         decls["attn"] = attn.attention_decls(d, layout, cfg.qk_norm)
-    if cfg.d_ff:
+    if cfg.moe is not None:
+        decls["ln2"] = rmsnorm_decl(d)
+        decls["moe"] = moe_decls(d, cfg.moe)
+    elif cfg.d_ff:
         decls["ln2"] = rmsnorm_decl(d)
         decls["mlp"] = mlp_decls(d, cfg.d_ff, cfg.mlp)
     return decls
@@ -138,11 +146,24 @@ def flash_train(q, k, v):
 
 
 def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
-                 causal: bool = True, max_len: Optional[int] = None):
+                 causal: bool = True, max_len: Optional[int] = None,
+                 kv_quant: bool = False):
     """Self-attention on pre-normed h; returns (out, cache_out)."""
     q, k, v = attn.project_qkv(p, h, layout, positions=positions,
                                rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
     if mode == "decode":
+        if kv_quant:
+            kq, ks = attn.quantize_kv(k)
+            vq, vs = attn.quantize_kv(v)
+            attn.cache_update(cache["k"]["q"], cache["v"]["q"], kq, vq, pos,
+                              window)
+            attn.cache_update(cache["k"]["s"], cache["v"]["s"], ks, vs, pos,
+                              window)
+            ck = attn.dequantize_kv(cache["k"]["q"], cache["k"]["s"],
+                                    q.dtype)
+            cv = attn.dequantize_kv(cache["v"]["q"], cache["v"]["s"],
+                                    q.dtype)
+            return attn.attend_decode(q, ck, cv, pos, window), cache
         ck, cv = attn.cache_update(cache["k"], cache["v"], k, v, pos, window)
         ctx = attn.attend_decode(q, ck, cv, pos, window)
         return ctx, {"k": ck, "v": cv}
@@ -172,6 +193,10 @@ def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
         pad = cap - S
         kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
         vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
+    if kv_quant:
+        kq, ks = attn.quantize_kv(kc)
+        vq, vs = attn.quantize_kv(vc)
+        return ctx, {"k": {"q": kq, "s": ks}, "v": {"q": vq, "s": vs}}
     return ctx, {"k": kc.to(CACHE_DTYPE), "v": vc.to(CACHE_DTYPE)}
 
 
@@ -180,9 +205,11 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
                 positions: Optional[torch.Tensor],
                 cache: Optional[Dict[str, Any]] = None,
                 pos: Optional[int] = None, causal: bool = True,
-                max_len: Optional[int] = None):
-    """One dense decoder block. Returns (x, cache_out); the dense family
-    has no auxiliary loss."""
+                max_len: Optional[int] = None, kv_quant: bool = False):
+    """One decoder block. Returns (x, cache_out, aux_loss): the MoE
+    FFN's load-balance loss in train mode, else 0.0 (a Python float, so a
+    dense block launches nothing for it)."""
+    aux = 0.0
     cache = cache or {}
     cache_out: Dict[str, Any] = {}
     if cfg.n_heads and "attn" in p:
@@ -192,14 +219,21 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
         ctx, c_attn = _attn_branch(cfg, layout, p["attn"], h, mode=mode,
                                    window=window, positions=positions,
                                    cache=cache.get("attn"), pos=pos,
-                                   causal=causal, max_len=max_len)
+                                   causal=causal, max_len=max_len,
+                                   kv_quant=kv_quant)
         x = x + attn.output_proj(p["attn"], ctx, layout)
         if mode != "train":
             cache_out["attn"] = c_attn
-    if cfg.d_ff:
+    if cfg.moe is not None:
+        h = rmsnorm(p["ln2"], x)
+        mo, moe_aux = moe_apply(p["moe"], h, cfg.moe)
+        x = x + mo
+        if mode == "train":
+            aux = moe_aux
+    elif cfg.d_ff:
         h = rmsnorm(p["ln2"], x)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp)
-    return x, (cache_out or None)
+    return x, (cache_out or None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -260,39 +294,43 @@ def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[Dict[str, Any]] = None,
                 pos: Optional[int] = None, causal: bool = True,
-                max_len: Optional[int] = None,
+                max_len: Optional[int] = None, kv_quant: bool = False,
                 remat_policy: str = "minimal"):
-    """Run all segments. Returns (x, caches_out).  In decode the caches
-    are written in place and returned; train returns no caches."""
+    """Run all segments. Returns (x, caches_out, aux): aux sums the
+    blocks' load-balance losses in train mode (0.0 where there are none).
+    In decode the caches are written in place and returned; train returns
+    no caches."""
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode={mode!r}: the port runs train, "
                                   f"prefill and decode")
+    aux_total = 0.0
     if mode == "train":
         for seg in segments(cfg):
             fn = partial(block_apply, cfg, tp, mode="train",
                          window=seg.window, positions=positions,
                          causal=causal)
-            body = _remat(lambda p, h, _fn=fn: _fn(p, h)[0], remat_policy)
+            body = _remat(lambda p, h, _fn=fn: _fn(p, h)[::2], remat_policy)
             p_seg = params[seg.name]
             for i in range(seg.n_layers if seg.scanned else 1):
-                x = body(_layer(p_seg, i) if seg.scanned else p_seg, x)
-        return x, None
+                x, aux = body(_layer(p_seg, i) if seg.scanned else p_seg, x)
+                aux_total = aux_total + aux
+        return x, None, aux_total
     caches = caches or {}
     caches_out: Dict[str, Any] = {}
     for seg in segments(cfg):
         p_seg = params[seg.name]
         c_seg = caches.get(seg.name)
         kw = dict(mode=mode, window=seg.window, positions=positions,
-                  pos=pos, causal=causal, max_len=max_len)
+                  pos=pos, causal=causal, max_len=max_len, kv_quant=kv_quant)
         if not seg.scanned:
-            x, caches_out[seg.name] = block_apply(cfg, tp, p_seg, x,
-                                                  cache=c_seg, **kw)
+            x, caches_out[seg.name], _ = block_apply(cfg, tp, p_seg, x,
+                                                     cache=c_seg, **kw)
             continue
         outs = []
         for i in range(seg.n_layers):
             c_l = None if c_seg is None else _layer(c_seg, i)
-            x, c_out = block_apply(cfg, tp, _layer(p_seg, i), x, cache=c_l,
-                                   **kw)
+            x, c_out, _ = block_apply(cfg, tp, _layer(p_seg, i), x,
+                                      cache=c_l, **kw)
             outs.append(c_out)
         caches_out[seg.name] = c_seg if mode == "decode" else _stack(outs)
-    return x, caches_out
+    return x, caches_out, aux_total
