@@ -277,12 +277,22 @@ PREPASS_BLOCK = 4096            # rows per onehot_groupby block row
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
 LM_ARCH = "qwen3-4b"
 # phase 8's other models, served at LM_SERVE after qwen3-4b: the dense
-# config with a gelu MLP and 9 query heads a kv head, and the MoE family
-# (16 query heads over 16 kv heads)
-LM_FAMILY = ("starcoder2-7b", "olmoe-1b-7b")
+# config with a gelu MLP and 9 query heads a kv head, the MoE family (16
+# query heads over 16 kv heads), the SSM family (attention-free) and the
+# hybrid family (25 query heads over 5 kv heads at head dim 64, windowed
+# attention but in 3 global layers, an SSD branch in every layer)
+LM_FAMILY = ("starcoder2-7b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
 # the LM path's two prefill shapes: (batch, prompt tokens, new tokens)
 LM_SERVE = (4, 512, 32)
 LM_LONG = (1, 4096, 2)
+# the family models served at more shapes than LM_SERVE: at LM_LONG
+# hymba's windowed layers mask, its ring cache keeps the last 1,024
+# tokens and its decode wraps to slot 0
+LM_FAMILY_SHAPES = {"hymba-1.5b": (LM_SERVE, LM_LONG)}
+LM_STEPS = 4                    # decode steps held against a prefill
+# the chunked SSD against its sequential oracle in f32: max |err| within
+# SSD_TOL x max(1, max |want|)
+SSD_TOL = 1e-3
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-3}   # tests/test_kernels.py
 # and per element: |err| <= FLASH_ULPS ulps of max(|got|, |want|) in the
 # output's type, plus FLASH_FLOOR for f32 rounding next to zero
@@ -3474,13 +3484,24 @@ def _cache_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(cache))
 
 
+def _flash_layers(cfg) -> int:
+    """The layers whose prefill attention is the flash kernel's: every
+    full-attention (unwindowed) layer of a model with attention (hymba:
+    its 3 global layers; mamba2: none)."""
+    from repro_torch.models.transformer import segments
+    if not cfg.n_heads:
+        return 0
+    return sum(seg.n_layers for seg in segments(cfg) if seg.window is None)
+
+
 def lm_path(model, params, prompts, init_s, label):
     """The LM path of one model: ``serve.generate`` on each prompt with
     the counters zeroed just before and read just after, nothing
     captured, so each generation's peak memory is what serving holds.
-    ``flash_attention`` must launch once per layer and prefill, and
-    nothing else.  Prints the ``[launches]`` and ``[lm]`` lines; returns
-    the generations and each one's flash launches."""
+    ``flash_attention`` must launch once per full-attention layer and
+    prefill (``_flash_layers``; an attention-free model launches
+    nothing), and nothing else.  Prints the ``[launches]`` and ``[lm]``
+    lines; returns the generations and each one's flash launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -3499,13 +3520,16 @@ def lm_path(model, params, prompts, init_s, label):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     _say("launches", path="lm", arch=label,
-         **{k: v for k, v in launches.items() if v})
+         **{k: v for k, v in launches.items()
+            if v or k == "flash_attention"})
     others = {k: v for k, v in launches.items()
               if v and k != "flash_attention"}
-    if any(n != cfg.n_layers for n in flash.values()) or others:
+    n_flash = _flash_layers(cfg)
+    if any(n != n_flash for n in flash.values()) or others:
         raise AssertionError(f"LM path ({label}) launches {launches}: "
-                             f"expected flash_attention once per layer "
-                             f"and prefill")
+                             f"expected flash_attention once per "
+                             f"full-attention layer ({n_flash}) and "
+                             f"prefill")
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     for (B, S, n_new), gen in gens.items():
         ids = gen.tokens
@@ -3551,8 +3575,7 @@ def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None):
     import torch
     from repro_torch.kernels import ops
     cfg = model.cfg
-    K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
-        cfg.resolved_head_dim
+    n_flash = _flash_layers(cfg)
     rows = []
     for (B, S, n_new), gen in gens.items():
         with FlashCapture() as capture, MoeCapture() as mcap:
@@ -3560,17 +3583,26 @@ def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None):
                 (B, S, n_new)]}, max_len=S + n_new)
         if moe is not None:
             moe.append((f"prefill_{B}x{S}", mcap.calls))
-        calls = capture.calls.get((B, K, G, S, d), [])
-        if len(calls) != cfg.n_layers or len(capture.calls) != 1:
-            raise AssertionError(
-                f"prefill {label} {B}x{S}: flash calls "
-                f"{ {k: len(c) for k, c in capture.calls.items()} }, "
-                f"expected {cfg.n_layers} of q {(B, K, G, S, d)}")
         first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         if not torch.equal(first, gen.tokens[:, 0]):
             raise AssertionError(f"prefill {label} {B}x{S}: the captured "
                                  f"run's first tokens differ from the "
                                  f"path's")
+        if not n_flash:
+            if capture.calls:
+                raise AssertionError(f"prefill {label} {B}x{S}: flash "
+                                     f"calls in an attention-free model")
+            _say("check", lm="no_flash_layers", arch=label,
+                 prefill=f"{B}x{S}", flash_calls=0)
+            continue
+        K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+            cfg.resolved_head_dim
+        calls = capture.calls.get((B, K, G, S, d), [])
+        if len(calls) != n_flash or len(capture.calls) != 1:
+            raise AssertionError(
+                f"prefill {label} {B}x{S}: flash calls "
+                f"{ {k: len(c) for k, c in capture.calls.items()} }, "
+                f"expected {n_flash} of q {(B, K, G, S, d)}")
         per = [_flash_check(ops.flash_attention(q, k, v, causal=c),
                             ops.flash_attention_plain(q, k, v, causal=c),
                             "bfloat16") for q, k, v, c in calls]
@@ -3681,9 +3713,11 @@ def lm_decode_checks(model, params, rng, label, moe=None):
 
 
 def lm_profiles(model, params, prompt, cache, tok, label) -> None:
-    """Where a prefill's and a decode step's device time goes."""
-    B, S, _ = LM_SERVE
-    step = lambda: model.decode_step(params, cache, tok[:, S:], S)
+    """Where a prefill's and a decode step's device time goes: ``prompt``
+    (B, S) and one decode step from ``cache``, a prefill of ``tok[:,
+    :S]`` (each call writes the same token at position S again)."""
+    B, S = prompt.shape
+    step = lambda: model.decode_step(params, cache, tok[:, S:S + 1], S)
     for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
             params, {"tokens": prompt})), ("decode step", step)):
         host_ms = _host_ms(fn)
@@ -3697,7 +3731,7 @@ def lm_profiles(model, params, prompt, cache, tok, label) -> None:
                     if "flash_attention_kernel" in k2)
         top = sorted(kernels, key=kernels.get, reverse=True)[:6]
         _say("profile", lm=what.replace(" ", "_"), arch=label,
-             host_ms=f"{host_ms:.3f}",
+             batch=B, prompt=S, host_ms=f"{host_ms:.3f}",
              kernel_ms=f"{dev_ms:.4f}", busy_share=f"{dev_ms / host_ms:.4f}",
              flash_ms=f"{flash:.4f}", kernels=len(kernels),
              top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
@@ -3715,8 +3749,9 @@ def _prompts(cfg, shapes, device, seed=0):
 def lm_phase(device):
     """Phase 8: qwen3-4b at full width on the card (bf16 cache at
     ``LM_SERVE`` and ``LM_LONG``, then the int8 cache at ``LM_SERVE``),
-    then each of ``LM_FAMILY`` at ``LM_SERVE``, each model freed before
-    the next is built.  Returns the flash_attention JSON rows."""
+    then each of ``LM_FAMILY`` at ``LM_SERVE`` (hymba-1.5b also at
+    ``LM_LONG``), each model freed before the next is built.  Returns the
+    flash_attention JSON rows."""
     import torch
     flash_sass()
     rows = []
@@ -3843,13 +3878,96 @@ def lm_int8(model, params, prompt, bf16_gen, device) -> None:
         [prompt, nxt], dim=1), label)
 
 
+def lm_steps_check(model, params, rng, shape, label):
+    """``LM_STEPS`` decode steps from a prefill of S tokens against a
+    prefill of S + LM_STEPS (max |logit gap| < 0.5, as one step is held).
+    Every step writes the cache in place (an SSM layer's state and conv
+    rings; a windowed layer's ring, which at S = 4096 wraps to slot 0) and
+    the decoder hands a stacked segment's cache back as it received it,
+    so a write that missed the cache shows in the next step.  The
+    prefill's cache holds the bytes its declarations do."""
+    import torch
+    cfg = model.cfg
+    B, S, _ = shape
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (B, S + LM_STEPS)),
+                          dtype=torch.int32, device=model.device)
+    _, cache = model.prefill(params, {"tokens": tok[:, :S]},
+                             max_len=S + LM_STEPS)
+    got = _cache_bytes(cache)
+    want = _cache_bytes(_decl_cache(model, B, S + LM_STEPS))
+    if got != want:
+        raise AssertionError(f"{label} {B}x{S}: the prefill cache holds "
+                             f"{got} bytes, its declarations {want}")
+    for i in range(LM_STEPS):
+        ld, cache = model.decode_step(params, cache,
+                                      tok[:, S + i:S + i + 1], S + i)
+    lf, _ = model.prefill(params, {"tokens": tok})
+    gap = float((ld - lf).abs().max())
+    finite = bool(torch.isfinite(ld).all() and torch.isfinite(lf).all())
+    if not finite or gap >= 0.5:
+        raise AssertionError(f"{label} {B}x{S}: {LM_STEPS} decode steps vs "
+                             f"a prefill of S + {LM_STEPS}: {gap:.4g} "
+                             f"(finite: {finite})")
+    _say("check", lm=f"decode_{LM_STEPS}_steps_vs_prefill", arch=label,
+         batch=B, prompt=S, max_abs_logit_gap=f"{gap:.4g}", limit=0.5,
+         ring_wraps=bool(cfg.window and S + LM_STEPS > cfg.window),
+         cache_bytes=got)
+
+
+def lm_ssd_check(model, params, prompt, label):
+    """The chunked SSD against its sequential oracle on layer 0's input,
+    captured from a prefill of ``prompt``: both in f32 (the layer's
+    parameters and the input cast up), at the model's chunk; max |err|
+    within ``SSD_TOL`` x max(1, max |want|)."""
+    import torch
+    from repro_torch.models import ssm
+    seen = []
+    inner = ssm.ssd_apply
+
+    def capture(p, u, lo, chunk, **kw):
+        if not seen:
+            seen.append((p, u, lo, chunk))
+        return inner(p, u, lo, chunk, **kw)
+    ssm.ssd_apply = capture
+    try:
+        model.prefill(params, {"tokens": prompt})
+    finally:
+        ssm.ssd_apply = inner
+    p, u, lo, chunk = seen[0]
+    p32 = {k: t.to(torch.float32) for k, t in p.items()}
+    u32 = u.to(torch.float32)
+    t0 = time.perf_counter()
+    got = inner(p32, u32, lo, chunk)
+    want = ssm.ssd_reference(p32, u32, lo)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    limit = SSD_TOL * max(1.0, top)
+    if not (err <= limit and torch.isfinite(got).all()):
+        raise AssertionError(f"{label} ssd_apply vs ssd_reference on "
+                             f"{tuple(u.shape)}: max |err| {err:.4g} "
+                             f"(limit {limit:.4g})")
+    _say("check", lm="ssd_chunked_vs_sequential", arch=label,
+         input=json.dumps(list(u.shape), separators=(",", ":")),
+         chunk=chunk, heads=lo.n_heads, d_state=lo.d_state,
+         max_abs_err=f"{err:.4g}", limit=f"{limit:.4g}",
+         max_abs_want=f"{top:.4g}",
+         seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def lm_family(arch, device):
-    """One of ``LM_FAMILY`` at ``LM_SERVE``: its path, the flash kernel on
-    every layer, decode against prefill, the profiles; an MoE model also
-    prints a ``[moe]`` line per prefill (capacity, dropped (token, k)
-    pairs per layer, the largest and smallest expert load)."""
+    """One of ``LM_FAMILY`` at ``LM_SERVE`` (and at ``LM_FAMILY_SHAPES``'
+    others): its path, the flash kernel on every full-attention layer,
+    decode against prefill, the profiles; an MoE model also prints a
+    ``[moe]`` line per prefill (capacity, dropped (token, k) pairs per
+    layer, the largest and smallest expert load); an SSM or hybrid model
+    also holds ``LM_STEPS`` decode steps against a prefill and the chunked
+    SSD against its sequential oracle at each shape, and profiles each."""
+    import torch
     cfg, model, params, init_s = _lm_model(arch, device)
-    rng, prompts = _prompts(cfg, (LM_SERVE,), device)
+    shapes = LM_FAMILY_SHAPES.get(arch, (LM_SERVE,))
+    rng, prompts = _prompts(cfg, shapes, device)
     gens, flash = lm_path(model, params, prompts, init_s, cfg.name)
     moe = [] if cfg.moe is not None else None
     rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name, moe)
@@ -3865,6 +3983,20 @@ def lm_family(arch, device):
                                           separators=(",", ":")),
              max_expert_load=max(loads), min_expert_load=min(loads))
     lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
+    del cache
+    if cfg.ssm is not None:
+        for shape in shapes:
+            lm_steps_check(model, params, rng, shape, cfg.name)
+            lm_ssd_check(model, params, prompts[shape], cfg.name)
+            if shape != LM_SERVE:
+                B, S, _ = shape
+                _, cache = model.prefill(params, {"tokens": prompts[shape]},
+                                         max_len=S + 1)
+                lm_profiles(model, params, prompts[shape], cache,
+                            torch.cat([prompts[shape],
+                                       prompts[shape][:, -1:]], 1),
+                            cfg.name)
+                del cache
     return rows
 
 

@@ -1,5 +1,5 @@
 """Batched serving: prefill a batch of prompts, then decode with the
-KV cache.
+cache (KV, and an SSM layer's state and conv rings).
 
 Usage:
   python -m repro_torch.launch.serve --arch qwen3-4b --tokens 32
@@ -44,7 +44,9 @@ def _sync(device) -> None:
 def generate(model, params: Dict[str, Any], tokens: torch.Tensor,
              n_new: int) -> Generation:
     """Greedy generation: prefill ``tokens`` (B, S) into a cache of
-    S + n_new slots, take the argmax, then ``n_new - 1`` decode steps."""
+    S + n_new slots (a windowed layer's ring holds at most its window; an
+    SSM layer's state does not grow), take the argmax, then ``n_new - 1``
+    decode steps."""
     B, S = tokens.shape
     _sync(tokens.device)
     t0 = time.perf_counter()

@@ -11,9 +11,11 @@ Serving holds bf16 weights (models/layers.py): casting the reference's f32
 master weights to bf16 once, here, gives the same numbers as the
 reference's ``.astype(bf16)`` at every use.  Both functions map nested
 dicts of any depth, so an MoE block's ``{"moe": {"router", "wi_gate",
-"wi_up", "wo"}}`` and an int8 cache entry's ``{"k": {"q", "s"}, "v":
-{...}}`` cross as they are; a cache keeps each leaf's own dtype (bf16, or
-int8 codes beside f32 scales).
+"wi_up", "wo"}}``, an SSM or hybrid block's ``{"ssm": {...}}`` beside its
+``ln_ssm`` (and a hybrid's ``attn_scale`` / ``ssm_scale``), and an int8
+cache entry's ``{"k": {"q", "s"}, "v": {...}}`` cross as they are; a
+cache keeps each leaf's own dtype (bf16; int8 codes beside f32 scales; an
+SSM entry's f32 state beside its bf16 conv rings).
 """
 from __future__ import annotations
 
@@ -54,5 +56,6 @@ def params_from_numpy(tree: Dict[str, Any], device,
 def cache_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """The reference's prefill cache as the port's, each leaf in its own
     dtype (bf16, the cache type of both packages; int8 codes and f32
-    scales with ``kv_quant``)."""
+    scales with ``kv_quant``; an SSM entry's f32 state and bf16 conv
+    rings)."""
     return _tree(tree, lambda a: tensor_from_numpy(a, device))

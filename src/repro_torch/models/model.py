@@ -1,7 +1,8 @@
 """build_model(cfg, tp, device=...): the entry point of the training and
 serving paths.
 
-A Model bundles, for the decoder-only dense and MoE families:
+A Model bundles, for the decoder-only dense, MoE, SSM and hybrid
+families:
   decls          -- parameter declarations (shapes + logical axes)
   loss           -- (params, batch) -> scalar   [train]
   prefill        -- (params, batch, max_len) -> (last_logits, cache)
@@ -9,7 +10,7 @@ A Model bundles, for the decoder-only dense and MoE families:
   cache_decls    -- (batch, max_len) -> tree of (shape, axes, dtype)
 
 Mirrors ``src/repro/models/model.py`` (``Model``, ``_attn_cache``,
-``_block_cache``, ``_stack_cache``, ``_positions`` and
+``_ssm_cache``, ``_block_cache``, ``_stack_cache``, ``_positions`` and
 ``_build_decoder_only``).  ``Model`` is a ``torch.nn.Module`` on one
 explicit device: ``init_params`` draws a parameter tree there and
 ``load_params`` checks one against the declarations and the device; the
@@ -20,9 +21,12 @@ remat policy and adds the MoE blocks' load-balance loss, as the
 reference's does.  ``kv_quant=True`` gives the int8 KV cache: each
 layer's entry is ``{"k": {"q": int8, "s": f32}, "v": {...}}``, the
 reference's layout, so a reference cache carries across
-(``carry.cache_from_numpy``).  The SSM, hybrid, audio and VLM families
-raise ``NotImplementedError`` until their slices; the dry-run's
-``input_specs`` waits for its.
+(``carry.cache_from_numpy``).  An SSM or hybrid block's cache entry
+``ssm`` holds the f32 state and the bf16 conv rings (``_ssm_cache``),
+whose size does not grow with the sequence; a hybrid block holds it beside
+its attention cache, a ring of ``window`` slots on its windowed layers.
+The audio and VLM families raise ``NotImplementedError`` until their
+slices; the dry-run's ``input_specs`` waits for its.
 """
 from __future__ import annotations
 
@@ -32,11 +36,12 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import embed_lookup, logits_fn, rmsnorm, softmax_xent
 from .params import Decls, count_params, init_params, resolve_device
 from .transformer import CACHE_DTYPE, decoder_decls, run_decoder, segments
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -55,11 +60,23 @@ def _attn_cache(cfg, tp, batch, max_len, window, kv_quant=False):
     return {"k": (shape, axes, CACHE_DTYPE), "v": (shape, axes, CACHE_DTYPE)}
 
 
+def _ssm_cache(cfg, tp, batch):
+    lo = ssm_mod.resolve_ssm_layout(cfg.d_model, cfg.ssm, tp)
+    shapes = ssm_mod.ssm_cache_shapes(batch, lo)
+    out = {}
+    for k, (shape, axes) in shapes.items():
+        dt = torch.float32 if k == "state" else CACHE_DTYPE
+        out[k] = (shape, axes, dt)
+    return out
+
+
 def _block_cache(cfg, tp, batch, max_len, window, *, kv_quant=False):
     entry: Dict[str, Any] = {}
     if cfg.n_heads:
         entry["attn"] = _attn_cache(cfg, tp, batch, max_len, window,
                                     kv_quant)
+    if cfg.ssm is not None:
+        entry["ssm"] = _ssm_cache(cfg, tp, batch)
     return entry
 
 

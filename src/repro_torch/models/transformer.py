@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly for the dense and MoE families.
+"""Decoder-only LM assembly: dense, MoE, SSM (mamba2) and hybrid (hymba)
+families share one generic block.
 
 Layer segmentation: archs with heterogeneous layers (hymba's 3 global-
 attention layers among sliding-window layers) are split into *segments* --
@@ -7,10 +8,10 @@ unstacked singles and stacked runs -- so every stacked run is homogeneous.
 Modes:
   train   -- full sequence, no cache, each block under the remat policy,
              MoE aux losses accumulated
-  prefill -- full sequence, last-position logits + KV cache out
+  prefill -- full sequence, last-position logits + KV/SSM cache out
   decode  -- one token against the cache
 
-Mirrors ``src/repro/models/transformer.py`` for the dense and MoE
+Mirrors ``src/repro/models/transformer.py`` for the four decoder-only
 families: the reference's ``lax.scan`` over a segment's stacked layer
 dimension is a Python loop over it, and parameters and caches keep the
 reference's stacked layout (a leading layers dimension).  One routing
@@ -33,7 +34,14 @@ every layer.  With ``kv_quant`` the cache holds int8 codes and f32 scales
 (``attention.quantize_kv``): prefill attends on the unquantized k/v and
 quantizes its cache; decode writes the new step's codes and scales in
 place, then dequantizes the whole cache and attends, as the reference
-does.  SSM, hybrid and cross-attention blocks wait for their slices.
+does.  An SSM block (``models/ssm.py``) runs the chunked SSD in train and
+prefill, whose cache is the final state and the last ``d_conv`` pre-conv
+projections, and the recurrent step in decode, which writes the state and
+the conv rings in place; a hybrid block runs attention and the SSD side by
+side on the same normed input and fuses them as ``0.5 * (a * attn_scale +
+s * ssm_scale)``.  Hymba's hybrid blocks declare ``ln_ssm``, as the
+reference's do, and never read it (its gradient is zero).
+Cross-attention blocks wait for their slice.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import (embed_decls, mlp_apply, mlp_decls, rmsnorm,
                      rmsnorm_decl)
 from .moe import moe_apply, moe_decls
@@ -103,9 +112,9 @@ def _stack_decls(decls: Decls, n: int) -> Decls:
 # ---------------------------------------------------------------------------
 
 def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
-    if cfg.ssm is not None or cross:
-        raise NotImplementedError(f"{cfg.name}: only dense and MoE blocks "
-                                  f"are ported so far")
+    if cross:
+        raise NotImplementedError(f"{cfg.name}: cross-attention blocks are "
+                                  f"not ported yet")
     d = cfg.d_model
     decls: Decls = {}
     if cfg.n_heads:
@@ -113,6 +122,16 @@ def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
                                           cfg.resolved_head_dim, tp)
         decls["ln1"] = rmsnorm_decl(d)
         decls["attn"] = attn.attention_decls(d, layout, cfg.qk_norm)
+    if cfg.ssm is not None:
+        lo = ssm_mod.resolve_ssm_layout(d, cfg.ssm, tp)
+        # declared for every SSM block, as in the reference; only the pure
+        # SSM branch reads it (the hybrid normalises with ln1)
+        decls["ln_ssm"] = rmsnorm_decl(d)
+        decls["ssm"] = ssm_mod.ssm_decls(d, lo)
+        if cfg.family == "hybrid":
+            # per-branch learned output scales (Hymba's branch fusion)
+            decls["attn_scale"] = ParamDecl((d,), (None,), init="ones")
+            decls["ssm_scale"] = ParamDecl((d,), (None,), init="ones")
     if cfg.moe is not None:
         decls["ln2"] = rmsnorm_decl(d)
         decls["moe"] = moe_decls(d, cfg.moe)
@@ -180,15 +199,19 @@ def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
     S = k.shape[1]
     cap = max_len or S
     if window:
-        # ring buffer of W slots; token p lives at slot p % W
-        W = min(S, window)
+        # ring buffer of T slots, the declared cache (cache_decl_shapes:
+        # min(cap, window)); token p lives at slot p % T.  The reference
+        # pads a prompt shorter than the window to ``window`` slots
+        # (repro/models/transformer.py:144-152), more than it declares;
+        # slots past the prompt are masked in decode either way.
+        T = min(cap, window)
+        W = min(S, T)
         kw, vw = k[:, S - W:], v[:, S - W:]
-        if W < window:
-            kw = torch.nn.functional.pad(kw, (0, 0, 0, 0, 0, window - W))
-            vw = torch.nn.functional.pad(vw, (0, 0, 0, 0, 0, window - W))
-        shift = (S - W) % window if W == window else (S - W)
-        kc = torch.roll(kw, shift, dims=1)
-        vc = torch.roll(vw, shift, dims=1)
+        if W < T:
+            kw = torch.nn.functional.pad(kw, (0, 0, 0, 0, 0, T - W))
+            vw = torch.nn.functional.pad(vw, (0, 0, 0, 0, 0, T - W))
+        kc = torch.roll(kw, (S - W) % T, dims=1)
+        vc = torch.roll(vw, (S - W) % T, dims=1)
     else:
         pad = cap - S
         kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
@@ -221,9 +244,27 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
                                    cache=cache.get("attn"), pos=pos,
                                    causal=causal, max_len=max_len,
                                    kv_quant=kv_quant)
-        x = x + attn.output_proj(p["attn"], ctx, layout)
+        a_out = attn.output_proj(p["attn"], ctx, layout)
         if mode != "train":
             cache_out["attn"] = c_attn
+        if cfg.family == "hybrid":
+            # parallel attention + SSM branches on the same input (Hymba)
+            s_out, c_ssm = _ssm_branch(cfg, tp, p, h, mode=mode,
+                                       cache=cache.get("ssm"))
+            x = x + 0.5 * (a_out * p["attn_scale"].to(a_out.dtype)
+                           + s_out * p["ssm_scale"].to(s_out.dtype))
+            if mode != "train":
+                cache_out["ssm"] = c_ssm
+        else:
+            x = x + a_out
+    elif cfg.ssm is not None:
+        # pure SSM family (mamba2): norm -> SSD -> residual
+        h = rmsnorm(p["ln_ssm"], x)
+        s_out, c_ssm = _ssm_branch(cfg, tp, p, h, mode=mode,
+                                   cache=cache.get("ssm"))
+        x = x + s_out
+        if mode != "train":
+            cache_out["ssm"] = c_ssm
     if cfg.moe is not None:
         h = rmsnorm(p["ln2"], x)
         mo, moe_aux = moe_apply(p["moe"], h, cfg.moe)
@@ -234,6 +275,32 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
         h = rmsnorm(p["ln2"], x)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp)
     return x, (cache_out or None), aux
+
+
+def _ssm_branch(cfg, tp, p, h, *, mode, cache):
+    """The SSD mixer on pre-normed h; returns (out, cache_out): decode
+    steps the recurrence and writes ``cache`` in place, prefill runs the
+    chunked form and builds the cache, train builds none."""
+    lo = ssm_mod.resolve_ssm_layout(cfg.d_model, cfg.ssm, tp)
+    if mode == "decode":
+        return ssm_mod.ssm_decode_step(p["ssm"], cache, h, lo)
+    if mode == "prefill":
+        s_out, s_state = ssm_mod.ssd_apply(p["ssm"], h, lo, cfg.ssm.chunk,
+                                           return_state=True)
+        return s_out, _ssm_prefill_cache(p, h, lo, s_state)
+    return ssm_mod.ssd_apply(p["ssm"], h, lo, cfg.ssm.chunk), None
+
+
+def _ssm_prefill_cache(p, h, lo, s_state):
+    """Conv tail (last d_conv inputs of each conv stream) + final state.
+    Only the last d_conv positions are projected (cheap)."""
+    K = lo.d_conv
+    tail = h[:, -K:]
+    _, xs, Bm, Cm, _ = ssm_mod._project(p["ssm"], tail, lo)
+    return {"state": s_state,
+            "conv_x": xs.to(CACHE_DTYPE),
+            "conv_B": Bm.to(CACHE_DTYPE),
+            "conv_C": Cm.to(CACHE_DTYPE)}
 
 
 # ---------------------------------------------------------------------------

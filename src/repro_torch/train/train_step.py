@@ -86,13 +86,17 @@ def loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor],
     nm = max(microbatches, 1)
     if nm == 1:
         loss = model.loss(leaves, batch)
-        return loss.detach(), list(torch.autograd.grad(loss, flat))
+        # materialize_grads: a leaf the loss never reads (a hybrid block's
+        # ``ln_ssm``, declared as in the reference) gets zeros, as from
+        # ``jax.grad``, where ``autograd.grad`` would raise
+        return loss.detach(), list(torch.autograd.grad(
+            loss, flat, materialize_grads=True))
     n = next(iter(batch.values())).shape[0] // nm
     grads, losses = None, []
     for i in range(nm):
         mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
         loss = model.loss(leaves, mb)
-        g = torch.autograd.grad(loss, flat)
+        g = torch.autograd.grad(loss, flat, materialize_grads=True)
         if grads is None:
             grads = [x.to(torch.float32) for x in g]
         else:

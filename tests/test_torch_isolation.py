@@ -46,7 +46,7 @@ def test_importing_every_module_leaves_out_jax_and_repro():
                  "repro_torch.train.checkpoint",
                  "repro_torch.train.fault_tolerance",
                  "repro_torch.train.tree", "repro_torch.data.tokenstore",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.models.ssm"):
         assert name in expected, name
 
 

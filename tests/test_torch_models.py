@@ -27,6 +27,16 @@ reference's tolerance (tests/test_models.py; 0.6 with the int8 cache, as
 tests/test_perf_features.py holds it).  The int8 cache's codes and scales
 are compared bit for bit (``quantize_kv`` alone, and layer 0 of a
 prefill, whose k and v do not depend on the attention route).
+
+The SSM and hybrid families (reduced mamba2-130m; reduced hymba-1.5b,
+window 16 with global layer 0, so its ring cache wraps): prefill logits
+within 0.06 with the same argmax, the cache as the reference declares it
+(an f32 state and bf16 conv rings beside the KV cache), layer 0's conv
+rings bit for bit, decode from the carried reference cache bit for bit
+without XLA's excess precision, the port's decode against its prefill of
+S + 1 tokens (33, which pads the chunked scan to two chunks of 32) within
+0.05 for mamba2 (tests/test_models.py) and 0.5 for hymba, and four decode
+steps, the cache written in place, against a prefill of S + 4.
 """
 import dataclasses
 
@@ -49,9 +59,12 @@ from repro_torch.models.carry import (cache_from_numpy, params_from_numpy,
                                       tensor_from_numpy)
 
 DENSE = ("qwen3-4b", "granite-3-8b", "phi3-mini-3.8b", "starcoder2-7b")
+MOE_INT8 = ("olmoe-1b-7b", "qwen3-4b:kv_quant")
+SSM = ("mamba2-130m", "hymba-1.5b")
 # the decode runs held bit for bit: every dense config, the MoE family,
-# and qwen3-4b with the int8 KV cache ("arch:kv_quant")
-EXACT = DENSE + ("olmoe-1b-7b", "qwen3-4b:kv_quant")
+# qwen3-4b with the int8 KV cache ("arch:kv_quant"), the SSM and hybrid
+# families
+EXACT = DENSE + MOE_INT8 + SSM
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
@@ -338,6 +351,41 @@ def test_slice_prefill_and_decode_match_the_reference(arch, window):
     assert float((ld - lf).abs().max()) < 0.5
 
 
+def test_windowed_prefill_shorter_than_the_window_holds_its_declared_cache():
+    """A prompt of 32 under a window of 64 (hymba's 4 x 512 under 1,024):
+    the port's ring holds the slots ``cache_decls`` declares, min(max_len,
+    window) = 36, where the reference's prefill pads to 64 (more than it
+    declares); decode attends the same tokens either way, so the logits
+    from the two caches agree within two bf16 ulps at the largest logit,
+    and four steps from the port's cache agree with a prefill of S + 4."""
+    cfg, ref_model, ref_params, model, params = _models("qwen3-4b", 64)
+    rng = np.random.default_rng(10)
+    B, S = 2, 32
+    tok = rng.integers(0, cfg.vocab_size, (B, S + 4)).astype(np.int32)
+    ttok = torch.from_numpy(tok)
+    _, ref_cache = ref_model.prefill(
+        ref_params, {"tokens": jnp.asarray(tok[:, :S])}, max_len=S + 4)
+    _, cache = model.prefill(params, {"tokens": ttok[:, :S]}, max_len=S + 4)
+    shape = model.cache_decls(B, S + 4)["layers"]["attn"]["k"][0]
+    assert shape == ref_model.cache_decls(B, S + 4)["layers"]["attn"]["k"][0]
+    assert shape[2] == S + 4
+    assert tuple(cache["layers"]["attn"]["k"].shape) == shape
+    assert ref_cache["layers"]["attn"]["k"].shape[2] == 64
+    ref_ld, _ = ref_model.decode_step(ref_params, ref_cache,
+                                      jnp.asarray(tok[:, S:S + 1]),
+                                      jnp.asarray(S, jnp.int32))
+    ld, _ = model.decode_step(params, cache, ttok[:, S:S + 1], S)
+    ref_ld = np.asarray(ref_ld)
+    gap = np.abs(ld.numpy() - ref_ld).max()
+    top = np.abs(ref_ld[..., :cfg.vocab_size]).max()
+    assert gap <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7), (gap, top)
+    for i in range(1, 4):
+        ld, _ = model.decode_step(params, cache, ttok[:, S + i:S + i + 1],
+                                  S + i)
+    lf, _ = model.prefill(params, {"tokens": ttok})
+    assert float((ld - lf).abs().max()) < 0.5
+
+
 _EXACT_REFERENCE = """
 import sys, jax, jax.numpy as jnp, numpy as np
 from repro import configs
@@ -366,10 +414,10 @@ for spec in sys.argv[2:]:
                           init(model.decls, np.random.default_rng(0)))
     tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 33))
     tok = jnp.asarray(tok, jnp.int32)
-    first, cache = model.prefill(params, {"tokens": tok[:, :32]},
-                                 max_len=36)
-    logits, _ = model.decode_step(params, cache, tok[:, 32:],
-                                  jnp.asarray(32, jnp.int32))
+    first, cache = jax.jit(model.prefill, static_argnames="max_len")(
+        params, {"tokens": tok[:, :32]}, max_len=36)
+    logits, _ = jax.jit(model.decode_step)(params, cache, tok[:, 32:],
+                                           jnp.asarray(32, jnp.int32))
     flat = {}
     put(flat, "p/", params)
     put(flat, "c/", cache)
@@ -381,8 +429,9 @@ for spec in sys.argv[2:]:
 @pytest.fixture(scope="module")
 def exact_reference(tmp_path_factory):
     """The reference's params, prefill logits and cache and decode logits
-    for every config of ``EXACT``, computed once in a process whose XLA
-    rounds every bf16 op as written (excess precision off)."""
+    for every config of ``EXACT``, computed once (jitted, as the
+    reference's model runs) in a process whose XLA rounds every bf16 op as
+    written (excess precision off)."""
     import os
     import subprocess
     import sys
@@ -434,9 +483,10 @@ def test_slice_decode_is_bit_exact_without_xla_excess_precision(
     rounding inside a fused chain (excess precision).  With that off, the
     reference rounds every op as written, as PyTorch does, and the port's
     decode_step from the carried cache gives the same logits bit for bit:
-    every dense config, the MoE family (its router included) and the
-    int8 cache (the step's codes and scales written, the whole cache
-    dequantized)."""
+    every dense config, the MoE family (its router included), the int8
+    cache (the step's codes and scales written, the whole cache
+    dequantized), and the SSM and hybrid families (the recurrent step's
+    conv rings, state and f32 products; hymba's windowed ring too)."""
     npz = np.load(exact_reference / f"{arch}.npz")
     model = _exact_model(arch)
     params = model.load_params(params_from_numpy(_unflatten(npz, "p/"),
@@ -447,7 +497,7 @@ def test_slice_decode_is_bit_exact_without_xla_excess_precision(
     np.testing.assert_array_equal(got.numpy(), npz["logits"])
 
 
-@pytest.mark.parametrize("arch", EXACT[len(DENSE):])
+@pytest.mark.parametrize("arch", MOE_INT8)
 def test_moe_and_int8_cache_prefill_match_the_reference(arch,
                                                         exact_reference):
     """The prefill of the MoE family and of the int8 cache: logits within
@@ -491,6 +541,82 @@ def test_moe_and_int8_cache_prefill_match_the_reference(arch,
     assert float((ld - lf).abs().max()) < limit
 
 
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_and_hybrid_slices_match_the_reference(arch, exact_reference):
+    """Reduced mamba2-130m (attention-free: no ``attn`` cache entry) and
+    hymba-1.5b (window 16, global layer 0: two windowed layers whose ring
+    of 16 slots a 32-token prefill wraps).  The prefill against the
+    reference's, its cache against the declarations, layer 0's conv rings
+    (pre-conv projections of the last 4 tokens, no scan in between) bit
+    for bit; the port's decode against its prefill of S + 1 (33 tokens,
+    the chunked scan padded to 64); four decode steps, every cache leaf
+    written in place, against a prefill of S + 4; and ``serve.generate``'s
+    first token."""
+    from repro_torch.models.transformer import segments
+    npz = np.load(exact_reference / f"{arch}.npz")
+    model = _exact_model(arch)
+    cfg = model.cfg
+    ref_model = ref_build_model(ref_configs.get(arch).reduced(), tp=1)
+    params = model.load_params(params_from_numpy(_unflatten(npz, "p/"),
+                                                  "cpu"))
+    tok = torch.from_numpy(npz["tok"])
+    got, cache = model.prefill(params, {"tokens": tok[:, :32]}, max_len=36)
+    want = npz["prefill"]
+    assert np.abs(got.numpy() - want).max() < 0.06
+    np.testing.assert_array_equal(got.numpy()[:, -1].argmax(-1),
+                                  want[:, -1].argmax(-1))
+    decl, ref_decl = model.cache_decls(2, 36), ref_model.cache_decls(2, 36)
+    carried = _exact_cache(npz, model)
+
+    def walk(t, d, w, c, path):
+        if isinstance(t, dict):
+            assert set(t) == set(d) == set(w) == set(c), path
+            for k in t:
+                walk(t[k], d[k], w[k], c[k], path + "/" + k)
+            return
+        assert tuple(t.shape) == d[0] == w[0] == tuple(c.shape), path
+        assert t.dtype == d[2] == c.dtype, path
+        assert str(d[2]).split(".")[-1] == np.dtype(w[2]).name, path
+    walk(cache, decl, ref_decl, carried, "")
+    first = segments(cfg)[0]
+    assert ("attn" in cache[first.name]) == (cfg.family == "hybrid")
+    assert cache[first.name]["ssm"]["state"].dtype == torch.float32
+    for name in ("conv_x", "conv_B", "conv_C"):
+        g, w = (c[first.name]["ssm"][name] for c in (cache, carried))
+        if first.scanned:
+            g, w = g[0], w[0]
+        assert torch.equal(g, w), name
+
+    # the port's own decode against its prefill of S + 1 tokens
+    limit = 0.05 if cfg.family == "ssm" else 0.5
+    ld, _ = model.decode_step(params, _exact_cache(npz, model),
+                              tok[:, 32:], 32)
+    lf, _ = model.prefill(params, {"tokens": tok})
+    assert float((ld - lf).abs().max()) < limit
+
+    # four steps from the port's own prefill cache, written in place
+    extra = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 3))
+    tok4 = torch.cat([tok, torch.as_tensor(extra, dtype=tok.dtype)], 1)
+    leaves = lambda c: [t for seg in c.values() for t in _leaf_list(seg)]
+    ptrs = [t.data_ptr() for t in leaves(cache)]
+    for i in range(4):
+        ld, out = model.decode_step(params, cache, tok4[:, 32 + i:33 + i],
+                                    32 + i)
+        assert [t.data_ptr() for t in leaves(out)] == ptrs
+    lf, _ = model.prefill(params, {"tokens": tok4})
+    assert float((ld - lf).abs().max()) < limit
+
+    gen = serve.generate(model, params, tok[:, :32], 2)
+    np.testing.assert_array_equal(gen.tokens[:, 0].numpy(),
+                                  want[:, -1].argmax(-1))
+
+
+def _leaf_list(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaf_list(v)]
+    return [tree]
+
+
 def test_serve_generate_first_token_is_the_references():
     cfg, ref_model, ref_params, model, params = _models("qwen3-4b")
     rng = np.random.default_rng(0)
@@ -504,16 +630,43 @@ def test_serve_generate_first_token_is_the_references():
 
 
 def test_families_not_yet_ported_raise():
-    """The SSM, hybrid, audio and VLM families still raise; the MoE family
-    and the int8 cache build; so do an unknown mode and remat policy."""
-    for arch in ("mamba2-130m", "hymba-1.5b", "seamless-m4t-medium",
-                 "llama-3.2-vision-11b"):
+    """The audio and VLM families and cross-attention blocks still raise;
+    the SSM and hybrid families build with the reference's parameter
+    counts (at full width too, from the declarations alone), as do the
+    MoE family and the int8 cache; so do an unknown mode and remat
+    policy."""
+    for arch in ("seamless-m4t-medium", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError):
             build_model(configs.get(arch).reduced(), device="cpu")
     from repro_torch.models.transformer import block_decls, run_decoder
-    for arch, kw in (("mamba2-130m", {}), ("qwen3-4b", {"cross": True})):
-        with pytest.raises(NotImplementedError, match="dense and MoE"):
-            block_decls(configs.get(arch).reduced(), 1, **kw)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        block_decls(configs.get("qwen3-4b").reduced(), 1, cross=True)
+    def nbytes(tree):
+        """Bytes a cache declaration holds (torch or numpy dtypes)."""
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        shape, _, dt = tree
+        size = dt.itemsize if isinstance(dt, torch.dtype) \
+            else np.dtype(dt).itemsize
+        return int(np.prod(shape)) * size
+
+    for arch, n, cache in (("mamba2-130m", 129_057_216,
+                            (76_873_728, 19_218_432)),
+                           ("hymba-1.5b", 1_641_738_496,
+                            (118_652_928, 61_128_192))):
+        for cfg, ref_cfg in ((configs.get(arch), ref_configs.get(arch)),
+                             (configs.get(arch).reduced(),
+                              ref_configs.get(arch).reduced())):
+            model = build_model(cfg, device="cpu")
+            ref_model = ref_build_model(ref_cfg, tp=1)
+            assert model.n_params == ref_model.n_params
+            for shape in ((4, 544), (1, 4098)):
+                assert nbytes(model.cache_decls(*shape)) \
+                    == nbytes(ref_model.cache_decls(*shape))
+        model = build_model(configs.get(arch), device="cpu")
+        assert model.n_params == n
+        assert (nbytes(model.cache_decls(4, 544)),
+                nbytes(model.cache_decls(1, 4098))) == cache
     moe = build_model(configs.get("olmoe-1b-7b").reduced(), device="cpu")
     assert "moe" in moe.decls["layers"] and "mlp" not in moe.decls["layers"]
     model = build_model(configs.get("qwen3-4b").reduced(), kv_quant=True,
