@@ -151,7 +151,24 @@ Phases, one line each (any failure raises and the script exits non-zero):
    output depend on the batch), the prefill through the plain attention
    (< 0.5), the profiles; olmoe also prints a ``[moe]`` line per
    prefill (capacity, dropped pairs per layer, largest and smallest
-   expert load).  ``[lm] arch=... seconds=`` closes each model;
+   expert load).  Then mamba2-130m (no attention: no flash launch) and
+   hymba-1.5b (flash on its 3 global layers; also at 1 x 4096), each
+   also holding 4 decode steps against a prefill of S + 4 and the
+   chunked SSD against its sequential oracle.  Then seamless-m4t-medium
+   (enc-dec) and llama-3.2-vision-11b (VLM), every ``cross/gate`` opened
+   to 1.0 (declared zero, it would leave the logits blind to the
+   memory), with seeded bf16 frames (4, 512, 1024) / image embeddings
+   (4, 6404, 4096): flash calls counted by route (``FlashCapture`` keyed
+   by role, q and k shapes and causal: seamless 12 "self" causal, 12
+   "encoder" and 12 "cross" non-causal a prefill; the VLM 32 "self", 8
+   "cross" against 6,404 keys), every layer's call against the plain
+   version, one JSON row per new route (the VLM's self layers repeat
+   qwen3-4b's 4 x 512 and add none), decode against a prefill of S + 1
+   on the same memory, the prefill through the plain attention, the
+   cache's bytes against its declarations (seamless's at ``enc_len``)
+   and the logits with the memory zeroed against the real ones (``[check]
+   lm=cross_gate_open``: the gap must be above 0).  ``[lm] arch=...
+   seconds=`` closes each model;
 9. segmented execution (``segmented_phase``; it runs after phase 7 and
    before phase 8, and frees its databases first) on 4 logical shards of
    the card (``make_query_mesh(4)``): Q1-Q7 and Qorders on the main
@@ -282,6 +299,14 @@ LM_ARCH = "qwen3-4b"
 # hybrid family (25 query heads over 5 kv heads at head dim 64, windowed
 # attention but in 3 global layers, an SSD branch in every layer)
 LM_FAMILY = ("starcoder2-7b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
+# then the families with a cross-attention memory, every ``cross/gate``
+# opened to 1.0 (declared zero, so tanh(0) would leave the logits blind
+# to the memory): the enc-dec seamless-m4t-medium (12 bidirectional
+# encoder layers over (B, S, d) frames, 12 decoder layers each with a
+# cross layer; 16 heads of 64) and the VLM llama-3.2-vision-11b (8
+# groups of 4 self layers and one gated cross layer over 6,404 image
+# embeddings; 32 query heads over 8 kv heads of 128)
+LM_CROSS = ("seamless-m4t-medium", "llama-3.2-vision-11b")
 # the LM path's two prefill shapes: (batch, prompt tokens, new tokens)
 LM_SERVE = (4, 512, 32)
 LM_LONG = (1, 4096, 2)
@@ -3290,28 +3315,49 @@ def segmented_phase(db, fact, dim, device):
 # -------------------------------------------------------------- LM path --
 
 class FlashCapture:
-    """Records the LM's ``flash_attention`` calls by q shape, with the
-    inputs of each.  It wraps ``ops.flash_attention``, the name the model
-    calls; the wrapper underneath still counts every launch."""
+    """Records the LM's ``flash_attention`` calls by route, the key
+    ``(role, q shape, k shape, causal)``, with the inputs of each (or,
+    with ``keep=False``, only a count: no tensor is held).  The role is
+    "encoder" inside an enc-dec ``model``'s ``encode``, else "self"
+    (causal) or "cross".  It wraps ``ops.flash_attention``, the name the
+    model calls; the wrapper underneath still counts every launch."""
 
-    def __init__(self):
-        self.calls = {}          # q shape -> [(q, k, v, causal), ...]
+    def __init__(self, model=None, keep: bool = True):
+        self.calls = {}          # route key -> [(q, k, v, causal) | None]
+        self.model, self.keep = model, keep
         self._inner = None
+        self._role = None
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self._inner = inner = ops.flash_attention
 
         def wrapped(q, k, v, *, causal=True, **kw):
-            self.calls.setdefault(tuple(q.shape), []).append(
-                (q, k, v, causal))
+            role = self._role or ("self" if causal else "cross")
+            self.calls.setdefault(
+                (role, tuple(q.shape), tuple(k.shape), causal), []).append(
+                    (q, k, v, causal) if self.keep else None)
             return inner(q, k, v, causal=causal, **kw)
         ops.flash_attention = wrapped
+        encode = getattr(self.model, "encode", None)
+        if encode is not None:
+            def encode_as_encoder(*a, **kw):
+                self._role = "encoder"
+                try:
+                    return encode(*a, **kw)
+                finally:
+                    self._role = None
+            self.model.encode = encode_as_encoder
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
         ops.flash_attention = self._inner
+        if self.model is not None and "encode" in vars(self.model):
+            del self.model.encode
+
+    def counts(self) -> dict:
+        return {key: len(c) for key, c in self.calls.items()}
 
 
 def _flash_check(got, want, dtype: str) -> dict:
@@ -3484,39 +3530,110 @@ def _cache_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(cache))
 
 
-def _flash_layers(cfg) -> int:
-    """The layers whose prefill attention is the flash kernel's: every
-    full-attention (unwindowed) layer of a model with attention (hymba:
-    its 3 global layers; mamba2: none)."""
+def _flash_routes(cfg) -> dict:
+    """The flash kernel's calls in one prefill, by role: "self", every
+    full-attention (unwindowed) self-attention layer, causal (hymba: its
+    3 global layers; mamba2: none); "encoder", an enc-dec model's
+    bidirectional encoder layers, and "cross", every cross layer (q
+    against the memory), both with ``causal=False``."""
     from repro_torch.models.transformer import segments
     if not cfg.n_heads:
-        return 0
-    return sum(seg.n_layers for seg in segments(cfg) if seg.window is None)
+        return {}
+    if cfg.family == "audio":
+        return {"encoder": cfg.n_encoder_layers, "self": cfg.n_layers,
+                "cross": cfg.n_layers}
+    if cfg.family == "vlm":
+        groups = cfg.n_layers // cfg.cross_attn_every
+        return {"self": groups * (cfg.cross_attn_every - 1),
+                "cross": groups}
+    return {"self": sum(seg.n_layers for seg in segments(cfg)
+                        if seg.window is None)}
 
 
-def lm_path(model, params, prompts, init_s, label):
-    """The LM path of one model: ``serve.generate`` on each prompt with
-    the counters zeroed just before and read just after, nothing
-    captured, so each generation's peak memory is what serving holds.
-    ``flash_attention`` must launch once per full-attention layer and
-    prefill (``_flash_layers``; an attention-free model launches
+def _by_role(counts: dict) -> dict:
+    out = {}
+    for (role, *_), n in counts.items():
+        out[role] = out.get(role, 0) + n
+    return out
+
+
+def _memories(model, shapes, device, seed=1):
+    """The memory each prompt shape's prefill attends to, bf16 from a
+    seeded generator on the card: an enc-dec model's frames (B, S, d), a
+    VLM's image embeddings (B, n_frontend_tokens, d); None for a
+    decoder-only model."""
+    import torch
+    cfg = model.cfg
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for B, S, n_new in shapes:
+        if model.memory_key is None:
+            out[(B, S, n_new)] = None
+            continue
+        T = S if cfg.family == "audio" else cfg.n_frontend_tokens
+        out[(B, S, n_new)] = torch.randn(
+            (B, T, cfg.d_model), generator=g, device=device).to(
+                torch.bfloat16)
+    return out
+
+
+def _batch(model, tokens, memory=None):
+    batch = {"tokens": tokens}
+    if memory is not None:
+        batch[model.memory_key] = memory
+    return batch
+
+
+def _decl_kw(model, memory) -> dict:
+    """An enc-dec model declares its cross cache at the frames' length
+    (``enc_len``), which is what its prefill writes."""
+    return {"enc_len": memory.shape[1]} if model.cfg.family == "audio" \
+        else {}
+
+
+def _open_gates(params) -> None:
+    """Every ``cross/gate`` leaf of ``params`` set to 1.0, in place."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            if k == "cross":
+                v["gate"].fill_(1.0)
+            _open_gates(v)
+
+
+def lm_path(model, params, prompts, init_s, label, memories=None):
+    """The LM path of one model: ``serve.generate`` on each prompt (and
+    its memory, for a model with cross layers) with the counters zeroed
+    just before and read just after, nothing captured (a
+    ``FlashCapture(keep=False)`` only counts the flash calls by route),
+    so each generation's peak memory is what serving holds.
+    ``flash_attention`` must launch once per flash layer and prefill
+    (``_flash_routes``, role by role; an attention-free model launches
     nothing), and nothing else.  Prints the ``[launches]`` and ``[lm]``
-    lines; returns the generations and each one's flash launches."""
+    lines; returns the generations and each one's flash calls by route
+    key."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     cfg = model.cfg
-    first = next(iter(prompts.values()))
-    serve.generate(model, params, first[:, :64], 2)          # warm-up
+    memories = memories or {shape: None for shape in prompts}
+    first = next(iter(prompts))
+    serve.generate(model, params, prompts[first][:, :64], 2,
+                   memory=memories[first])                   # warm-up
     gens, peaks, flash = {}, {}, {}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     for shape, tokens in prompts.items():
         torch.cuda.reset_peak_memory_stats()
         before = ops.launch_counts()["flash_attention"]
-        gens[shape] = serve.generate(model, params, tokens, shape[2])
+        with FlashCapture(model, keep=False) as routes:
+            gens[shape] = serve.generate(model, params, tokens, shape[2],
+                                         memory=memories[shape])
         peaks[shape] = torch.cuda.max_memory_allocated()
-        flash[shape] = ops.launch_counts()["flash_attention"] - before
+        flash[shape] = routes.counts()
+        if ops.launch_counts()["flash_attention"] - before \
+                != sum(flash[shape].values()):
+            raise AssertionError(f"LM path ({label}): flash launches "
+                                 f"differ from its calls {flash[shape]}")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     _say("launches", path="lm", arch=label,
@@ -3524,12 +3641,12 @@ def lm_path(model, params, prompts, init_s, label):
             if v or k == "flash_attention"})
     others = {k: v for k, v in launches.items()
               if v and k != "flash_attention"}
-    n_flash = _flash_layers(cfg)
-    if any(n != n_flash for n in flash.values()) or others:
-        raise AssertionError(f"LM path ({label}) launches {launches}: "
-                             f"expected flash_attention once per "
-                             f"full-attention layer ({n_flash}) and "
-                             f"prefill")
+    want = _flash_routes(cfg)
+    if any(_by_role(f) != want for f in flash.values()) or others:
+        raise AssertionError(f"LM path ({label}) launches {launches}, "
+                             f"flash calls {flash}: expected "
+                             f"flash_attention once per flash layer and "
+                             f"prefill, by role {want}")
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     for (B, S, n_new), gen in gens.items():
         ids = gen.tokens
@@ -3538,49 +3655,62 @@ def lm_path(model, params, prompts, init_s, label):
             raise AssertionError(f"generate {label} {B}x{S}: tokens "
                                  f"{ids.shape} out of [0, {cfg.vocab_size})")
         steps = max(gen.decode_steps, 1)
-        kv_bytes = _cache_bytes(_decl_cache(model, B, S + n_new))
+        memory = memories[(B, S, n_new)]
+        kv_bytes = _cache_bytes(_decl_cache(
+            model, B, S + n_new, **_decl_kw(model, memory)))
+        extra = {} if memory is None else {
+            "memory": json.dumps(list(memory.shape), separators=(",", ":"))}
         _say("lm", arch=label, params=model.n_params, batch=B, prompt=S,
-             new_tokens=n_new, init_s=f"{init_s:.2f}",
+             new_tokens=n_new, **extra, init_s=f"{init_s:.2f}",
              prefill_ms=f"{gen.prefill_s * 1e3:.3f}",
              prefill_tok_per_s=f"{B * S / gen.prefill_s:.1f}",
              decode_ms_per_step=f"{gen.decode_s * 1e3 / steps:.3f}",
              decode_tok_per_s=f"{B * gen.decode_steps / gen.decode_s:.1f}"
              if gen.decode_steps else "none",
              weights_gb=f"{weights / 1e9:.3f}", kv_cache_bytes=kv_bytes,
-             flash_launches=flash[(B, S, n_new)],
+             flash_launches=sum(flash[(B, S, n_new)].values()),
+             flash_routes=json.dumps(_by_role(flash[(B, S, n_new)]),
+                                     separators=(",", ":")),
              max_memory_allocated_gib=f"{peaks[(B, S, n_new)] / 2**30:.3f}",
              first_tokens=json.dumps(ids[0, :8].tolist()))
     return gens, flash
 
 
-def _decl_cache(model, batch, max_len):
-    """The cache ``model.cache_decls`` declares, as meta tensors (shapes
-    and dtypes, no memory)."""
+def _decl_cache(model, batch, max_len, **kw):
+    """The cache ``model.cache_decls`` declares (``kw``: an enc-dec
+    model's ``enc_len``), as meta tensors (shapes and dtypes, no
+    memory)."""
     import torch
 
     def meta(tree):
         if isinstance(tree, dict):
             return {k: meta(v) for k, v in tree.items()}
         return torch.empty(tree[0], dtype=tree[2], device="meta")
-    return meta(model.cache_decls(batch, max_len))
+    return meta(model.cache_decls(batch, max_len, **kw))
 
 
-def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None):
+def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None,
+                  memories=None, seen=None):
     """Each prefill again with every layer's kernel inputs captured (its
-    first token must equal the generation's), the kernel against its
-    plain version on each layer, and one flash JSON row per prompt shape;
-    one shape at a time, so the captured tensors are freed in between.
-    With ``moe`` (a list), each prefill's ``MoeCapture`` calls are added
-    to it."""
+    first token must equal the generation's, and its flash calls by
+    route those of the path), the kernel against its plain version on
+    each layer, and one flash JSON row per route (role, shapes, causal)
+    and prompt shape; one shape at a time, so the captured tensors are
+    freed in between.  ``seen`` (a set) holds the route keys of rows
+    made for earlier models: such a route (the VLM's self layers repeat
+    qwen3-4b's 4 x 512) is checked, timed and printed, but adds no JSON
+    row.  With ``moe`` (a list), each prefill's ``MoeCapture`` calls are
+    added to it."""
     import torch
     from repro_torch.kernels import ops
-    cfg = model.cfg
-    n_flash = _flash_layers(cfg)
+    memories = memories or {shape: None for shape in prompts}
+    seen = set() if seen is None else seen
     rows = []
     for (B, S, n_new), gen in gens.items():
-        with FlashCapture() as capture, MoeCapture() as mcap:
-            logits, _ = model.prefill(params, {"tokens": prompts[
-                (B, S, n_new)]}, max_len=S + n_new)
+        memory = memories[(B, S, n_new)]
+        with FlashCapture(model) as capture, MoeCapture() as mcap:
+            logits, _ = model.prefill(params, _batch(
+                model, prompts[(B, S, n_new)], memory), max_len=S + n_new)
         if moe is not None:
             moe.append((f"prefill_{B}x{S}", mcap.calls))
         first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -3588,39 +3718,47 @@ def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None):
             raise AssertionError(f"prefill {label} {B}x{S}: the captured "
                                  f"run's first tokens differ from the "
                                  f"path's")
-        if not n_flash:
+        if not flash[(B, S, n_new)]:
             if capture.calls:
                 raise AssertionError(f"prefill {label} {B}x{S}: flash "
                                      f"calls in an attention-free model")
             _say("check", lm="no_flash_layers", arch=label,
                  prefill=f"{B}x{S}", flash_calls=0)
             continue
-        K, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
-            cfg.resolved_head_dim
-        calls = capture.calls.get((B, K, G, S, d), [])
-        if len(calls) != n_flash or len(capture.calls) != 1:
+        if capture.counts() != flash[(B, S, n_new)] or any(
+                causal != (role == "self")
+                for role, _, _, causal in capture.calls):
             raise AssertionError(
-                f"prefill {label} {B}x{S}: flash calls "
-                f"{ {k: len(c) for k, c in capture.calls.items()} }, "
-                f"expected {n_flash} of q {(B, K, G, S, d)}")
-        per = [_flash_check(ops.flash_attention(q, k, v, causal=c),
-                            ops.flash_attention_plain(q, k, v, causal=c),
-                            "bfloat16") for q, k, v, c in calls]
-        stats = {"max_abs_err": max(p["max_abs_err"] for p in per),
-                 "limit_share": max(p["limit_share"] for p in per),
-                 "median_abs_want": min(p["median_abs_want"] for p in per)}
-        q, k, v, c = calls[0]
-        row = _flash_row(q, k, v, c, flash[(B, S, n_new)], stats,
-                         f"{label} prefill {B}x{S}: q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} bf16 causal")
-        rows.append(row)
-        _say_row(row, arch=label, layers=len(calls),
-                 max_abs_err=f"{stats['max_abs_err']:.3g}",
-                 limit_share=f"{stats['limit_share']:.3g}",
-                 min_median_abs_want=f"{stats['median_abs_want']:.3g}",
-                 bound_by=row["bound_by"],
-                 bound_share=_fmt(row["bound_share"]))
-        del capture, calls, per, q, k, v
+                f"prefill {label} {B}x{S}: flash calls {capture.counts()}, "
+                f"the path's {flash[(B, S, n_new)]}")
+        for key in sorted(capture.calls):
+            role, q_shape, k_shape, causal = key
+            calls = capture.calls.pop(key)
+            per = [_flash_check(ops.flash_attention(q, k, v, causal=c),
+                                ops.flash_attention_plain(q, k, v, causal=c),
+                                "bfloat16") for q, k, v, c in calls]
+            stats = {"max_abs_err": max(p["max_abs_err"] for p in per),
+                     "limit_share": max(p["limit_share"] for p in per),
+                     "median_abs_want": min(p["median_abs_want"]
+                                            for p in per)}
+            q, k, v, c = calls[0]
+            row = _flash_row(q, k, v, c, flash[(B, S, n_new)][key], stats,
+                             f"{label} prefill {B}x{S} {role}: q "
+                             f"{q_shape} k {k_shape} bf16 "
+                             f"{'causal' if c else 'non-causal'}")
+            new = key not in seen
+            if new:
+                seen.add(key)
+                rows.append(row)
+            _say_row(row, arch=label, role=role, layers=len(calls),
+                     causal=causal, json_row=new,
+                     max_abs_err=f"{stats['max_abs_err']:.3g}",
+                     limit_share=f"{stats['limit_share']:.3g}",
+                     min_median_abs_want=f"{stats['median_abs_want']:.3g}",
+                     bound_by=row["bound_by"],
+                     bound_share=_fmt(row["bound_share"]))
+            del calls, per, q, k, v
+        del capture
     return rows
 
 
@@ -3655,15 +3793,17 @@ def flash_extra_cases(cfg, device) -> None:
              median_abs_want=f"{st['median_abs_want']:.3g}")
 
 
-def lm_decode_checks(model, params, rng, label, moe=None):
+def lm_decode_checks(model, params, rng, label, moe=None, memory=None):
     """Decode from a prefill cache against a prefill of S + 1 tokens
     (decode takes the plain ``attend_full``, the prefill the kernel; max
     |logit gap| < 0.5), then that prefill through the kernel against the
     plain attention (< 0.5), at ``LM_SERVE``.  An MoE model (``moe``, a
     list that receives both prefills' ``MoeCapture`` calls) holds the
     first only where neither prefill dropped a (token, k) pair: a drop
-    makes a token's output depend on the rest of the batch.  Returns the
-    prefill cache and the tokens, for a decode step's profile."""
+    makes a token's output depend on the rest of the batch.  A model
+    with cross layers prefills both with the same ``memory``, whose
+    length does not grow with the prompt.  Returns the prefill cache and
+    the tokens, for a decode step's profile."""
     import torch
     from repro_torch.kernels import ops
     cfg = model.cfg
@@ -3671,11 +3811,11 @@ def lm_decode_checks(model, params, rng, label, moe=None):
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
                           dtype=torch.int32, device=model.device)
     with MoeCapture() as short:
-        _, cache = model.prefill(params, {"tokens": tok[:, :S]},
+        _, cache = model.prefill(params, _batch(model, tok[:, :S], memory),
                                  max_len=S + 4)
     ld, _ = model.decode_step(params, cache, tok[:, S:], S)
     with MoeCapture() as full:
-        lf, _ = model.prefill(params, {"tokens": tok})
+        lf, _ = model.prefill(params, _batch(model, tok, memory))
     gap = float((ld - lf).abs().max())
     finite = bool(torch.isfinite(ld).all() and torch.isfinite(lf).all())
     dropped = sum(short.dropped()) + sum(full.dropped())
@@ -3692,7 +3832,7 @@ def lm_decode_checks(model, params, rng, label, moe=None):
     ops.flash_attention = lambda q, k, v, causal=True, **kw: \
         ops.flash_attention_plain(q, k, v, causal=causal)
     try:
-        plain_logits, _ = model.prefill(params, {"tokens": tok})
+        plain_logits, _ = model.prefill(params, _batch(model, tok, memory))
     finally:
         ops.flash_attention = inner
     plain_gap = float((kernel_logits - plain_logits).abs().max())
@@ -3712,14 +3852,16 @@ def lm_decode_checks(model, params, rng, label, moe=None):
     return cache, tok
 
 
-def lm_profiles(model, params, prompt, cache, tok, label) -> None:
+def lm_profiles(model, params, prompt, cache, tok, label,
+                memory=None) -> None:
     """Where a prefill's and a decode step's device time goes: ``prompt``
-    (B, S) and one decode step from ``cache``, a prefill of ``tok[:,
-    :S]`` (each call writes the same token at position S again)."""
+    (B, S) (with ``memory``, for a model with cross layers) and one
+    decode step from ``cache``, a prefill of ``tok[:, :S]`` (each call
+    writes the same token at position S again)."""
     B, S = prompt.shape
     step = lambda: model.decode_step(params, cache, tok[:, S:S + 1], S)
     for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
-            params, {"tokens": prompt})), ("decode step", step)):
+            params, _batch(model, prompt, memory))), ("decode step", step)):
         host_ms = _host_ms(fn)
         _, kernels = _profile(fn)
         if not kernels:
@@ -3749,16 +3891,16 @@ def _prompts(cfg, shapes, device, seed=0):
 def lm_phase(device):
     """Phase 8: qwen3-4b at full width on the card (bf16 cache at
     ``LM_SERVE`` and ``LM_LONG``, then the int8 cache at ``LM_SERVE``),
-    then each of ``LM_FAMILY`` at ``LM_SERVE`` (hymba-1.5b also at
-    ``LM_LONG``), each model freed before the next is built.  Returns the
-    flash_attention JSON rows."""
+    then each of ``LM_FAMILY`` and ``LM_CROSS`` at ``LM_SERVE``
+    (hymba-1.5b also at ``LM_LONG``), each model freed before the next is
+    built.  Returns the flash_attention JSON rows, one per route shape."""
     import torch
     flash_sass()
-    rows = []
-    for arch in (LM_ARCH,) + LM_FAMILY:
+    rows, seen = [], set()
+    for arch in (LM_ARCH,) + LM_FAMILY + LM_CROSS:
         t0 = time.perf_counter()
-        rows += (lm_qwen(device) if arch == LM_ARCH
-                 else lm_family(arch, device))
+        rows += (lm_qwen(device, seen) if arch == LM_ARCH
+                 else lm_family(arch, device, seen))
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3766,14 +3908,15 @@ def lm_phase(device):
     return rows
 
 
-def lm_qwen(device):
+def lm_qwen(device, seen):
     """qwen3-4b: the bf16 cache's path at both shapes, the flash kernel
     on every layer of both prefills and on its extra cases, decode against
     prefill, the profiles; then the int8 cache (``lm_int8``)."""
     cfg, model, params, init_s = _lm_model(LM_ARCH, device)
     rng, prompts = _prompts(cfg, (LM_SERVE, LM_LONG), device)
     gens, flash = lm_path(model, params, prompts, init_s, cfg.name)
-    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name)
+    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name,
+                         seen=seen)
     flash_extra_cases(cfg, device)
     cache, tok = lm_decode_checks(model, params, rng, cfg.name)
     lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
@@ -3956,22 +4099,72 @@ def lm_ssd_check(model, params, prompt, label):
          seconds=f"{time.perf_counter() - t0:.2f}")
 
 
-def lm_family(arch, device):
-    """One of ``LM_FAMILY`` at ``LM_SERVE`` (and at ``LM_FAMILY_SHAPES``'
-    others): its path, the flash kernel on every full-attention layer,
-    decode against prefill, the profiles; an MoE model also prints a
-    ``[moe]`` line per prefill (capacity, dropped (token, k) pairs per
-    layer, the largest and smallest expert load); an SSM or hybrid model
-    also holds ``LM_STEPS`` decode steps against a prefill and the chunked
-    SSD against its sequential oracle at each shape, and profiles each."""
+def lm_cross_checks(model, params, prompt, memory, label) -> None:
+    """A model with cross layers at ``LM_SERVE``: the prefill's cache
+    holds the bytes its declarations do (an enc-dec model's at
+    ``enc_len``, the frames' length), its cross entries included, and
+    the prefill's logits with the memory zeroed differ from those with
+    the real memory (the gates are open, so the cross path acts)."""
+    import torch
+    B, S = prompt.shape
+    max_len = S + LM_SERVE[2]
+    logits, cache = model.prefill(params, _batch(model, prompt, memory),
+                                  max_len=max_len)
+    decl = _decl_cache(model, B, max_len, **_decl_kw(model, memory))
+    got, want = _cache_bytes(cache), _cache_bytes(decl)
+    cross, want_cross = _cross_bytes(cache), _cross_bytes(decl)
+    if got != want or cross != want_cross or not cross:
+        raise AssertionError(f"{label} {B}x{S}: the prefill cache holds "
+                             f"{got} bytes ({cross} cross), its "
+                             f"declarations {want} ({want_cross})")
+    del cache
+    blind, _ = model.prefill(params, _batch(model, prompt,
+                                            torch.zeros_like(memory)))
+    gap = float((logits - blind).abs().max())
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(blind)
+                  .all())
+    if not finite or not gap > 0:
+        raise AssertionError(f"{label}: the logits with the memory zeroed "
+                             f"are those with the memory (gap {gap:.4g}, "
+                             f"finite: {finite})")
+    _say("check", lm="cache_bytes", arch=label, batch=B, max_len=max_len,
+         memory=json.dumps(list(memory.shape), separators=(",", ":")),
+         cache_bytes=got, declared=want, cross_bytes=cross)
+    _say("check", lm="cross_gate_open", arch=label, gate=1.0,
+         memory_zeroed_logit_gap=f"{gap:.4g}",
+         logit_std=f"{float(logits[..., :model.cfg.vocab_size].float().std()):.4g}")
+
+
+def _cross_bytes(cache) -> int:
+    """Bytes of the ``cross`` entries of a cache tree."""
+    return sum(_cache_bytes(v) if k == "cross" else _cross_bytes(v)
+               for k, v in cache.items() if isinstance(v, dict))
+
+
+def lm_family(arch, device, seen):
+    """One of ``LM_FAMILY`` or ``LM_CROSS`` at ``LM_SERVE`` (and at
+    ``LM_FAMILY_SHAPES``' others): its path, the flash kernel on every
+    flash layer by route, decode against prefill, the profiles; an MoE
+    model also prints a ``[moe]`` line per prefill (capacity, dropped
+    (token, k) pairs per layer, the largest and smallest expert load); an
+    SSM or hybrid model also holds ``LM_STEPS`` decode steps against a
+    prefill and the chunked SSD against its sequential oracle at each
+    shape, and profiles each; a model with cross layers runs with its
+    gates opened and a seeded memory (``_memories``) and also holds
+    ``lm_cross_checks``."""
     import torch
     cfg, model, params, init_s = _lm_model(arch, device)
+    if model.memory_key is not None:
+        _open_gates(params)
     shapes = LM_FAMILY_SHAPES.get(arch, (LM_SERVE,))
     rng, prompts = _prompts(cfg, shapes, device)
-    gens, flash = lm_path(model, params, prompts, init_s, cfg.name)
+    memories = _memories(model, shapes, device)
+    gens, flash = lm_path(model, params, prompts, init_s, cfg.name, memories)
     moe = [] if cfg.moe is not None else None
-    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name, moe)
-    cache, tok = lm_decode_checks(model, params, rng, cfg.name, moe)
+    rows = lm_flash_rows(model, params, prompts, gens, flash, cfg.name, moe,
+                         memories, seen)
+    cache, tok = lm_decode_checks(model, params, rng, cfg.name, moe,
+                                  memories[LM_SERVE])
     for what, calls in moe or ():
         if len(calls) != cfg.n_layers:
             raise AssertionError(f"{what}: {len(calls)} MoE dispatches, "
@@ -3982,8 +4175,12 @@ def lm_family(arch, device):
              dropped_per_layer=json.dumps([c[1] for c in calls],
                                           separators=(",", ":")),
              max_expert_load=max(loads), min_expert_load=min(loads))
-    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
+    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name,
+                memories[LM_SERVE])
     del cache
+    if model.memory_key is not None:
+        lm_cross_checks(model, params, prompts[LM_SERVE],
+                        memories[LM_SERVE], cfg.name)
     if cfg.ssm is not None:
         for shape in shapes:
             lm_steps_check(model, params, rng, shape, cfg.name)

@@ -1,5 +1,6 @@
 """Batched serving: prefill a batch of prompts, then decode with the
-cache (KV, and an SSM layer's state and conv rings).
+cache (KV, an SSM layer's state and conv rings, a cross layer's k and v
+of the memory).
 
 Usage:
   python -m repro_torch.launch.serve --arch qwen3-4b --tokens 32
@@ -11,7 +12,9 @@ asks for the CPU).  As in the reference, ``--reduced`` is a store_true
 flag whose default is already True, so the command line always runs the
 reduced config; ``generate`` takes any model, full width included.
 Sampling is greedy: the reference parses ``--temperature`` and does not
-use it.
+use it.  An enc-dec model (seamless) gets random frames (B, S, d) and a
+VLM random image embeddings (B, n_frontend_tokens, d), bf16, drawn from
+the same generator after the prompts, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -42,16 +45,21 @@ def _sync(device) -> None:
 
 
 def generate(model, params: Dict[str, Any], tokens: torch.Tensor,
-             n_new: int) -> Generation:
+             n_new: int, *, memory: Optional[torch.Tensor] = None
+             ) -> Generation:
     """Greedy generation: prefill ``tokens`` (B, S) into a cache of
     S + n_new slots (a windowed layer's ring holds at most its window; an
     SSM layer's state does not grow), take the argmax, then ``n_new - 1``
-    decode steps."""
+    decode steps.  ``memory`` is what the model's cross layers attend to
+    (``model.memory_key``: an enc-dec model's frames, a VLM's image
+    embeddings); the prefill caches its k and v, and decode reads them."""
     B, S = tokens.shape
+    batch = {"tokens": tokens}
+    if memory is not None:
+        batch[model.memory_key] = memory
     _sync(tokens.device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  max_len=S + n_new)
+    logits, cache = model.prefill(params, batch, max_len=S + n_new)
     nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     _sync(tokens.device)
     t_prefill = time.perf_counter() - t0
@@ -89,7 +97,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Generation:
     B, S = args.batch, args.prompt_len
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              dtype=torch.int32, device=model.device)
-    gen = generate(model, params, tokens, args.tokens)
+    memory = None
+    if cfg.family == "audio":
+        memory = rng.normal(size=(B, S, cfg.d_model))
+    if cfg.family == "vlm":
+        memory = rng.normal(size=(B, cfg.n_frontend_tokens, cfg.d_model))
+    if memory is not None:
+        memory = torch.as_tensor(memory, dtype=torch.bfloat16,
+                                 device=model.device)
+    gen = generate(model, params, tokens, args.tokens, memory=memory)
     print(f"[serve] prefill {B}x{S} in {gen.prefill_s:.2f}s "
           f"({B*S/gen.prefill_s:,.0f} tok/s)")
     print(f"[serve] decoded {gen.decode_steps} steps x {B} seqs in "

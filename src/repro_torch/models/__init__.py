@@ -1,5 +1,6 @@
-"""The LM stack of the port (dense decoder-only family so far): parameter
-declarations, layers, attention, the decoder and ``build_model``.
+"""The LM stack of the port (every family: dense, MoE, SSM, hybrid,
+enc-dec and VLM): parameter declarations, layers, attention, the
+decoder and ``build_model``.
 Mirrors ``src/repro/models/``."""
 from .model import Model, build_model
 from .params import count_params, init_params

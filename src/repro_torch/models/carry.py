@@ -12,10 +12,14 @@ master weights to bf16 once, here, gives the same numbers as the
 reference's ``.astype(bf16)`` at every use.  Both functions map nested
 dicts of any depth, so an MoE block's ``{"moe": {"router", "wi_gate",
 "wi_up", "wo"}}``, an SSM or hybrid block's ``{"ssm": {...}}`` beside its
-``ln_ssm`` (and a hybrid's ``attn_scale`` / ``ssm_scale``), and an int8
-cache entry's ``{"k": {"q", "s"}, "v": {...}}`` cross as they are; a
-cache keeps each leaf's own dtype (bf16; int8 codes beside f32 scales; an
-SSM entry's f32 state beside its bf16 conv rings).
+``ln_ssm`` (and a hybrid's ``attn_scale`` / ``ssm_scale``), an enc-dec
+model's ``encoder`` stack, ``frontend_proj`` and ``ln_enc`` and its
+blocks' ``ln_cross`` / ``cross`` (with the gate), a VLM's doubly stacked
+``groups_self`` and its ``groups_cross``, and an int8 cache entry's
+``{"k": {"q", "s"}, "v": {...}}`` cross as they are; a cache keeps each
+leaf's own dtype (bf16, a cross layer's ``{"cross": {"k", "v"}}`` too;
+int8 codes beside f32 scales; an SSM entry's f32 state beside its bf16
+conv rings).
 """
 from __future__ import annotations
 

@@ -1,35 +1,51 @@
 """build_model(cfg, tp, device=...): the entry point of the training and
 serving paths.
 
-A Model bundles, for the decoder-only dense, MoE, SSM and hybrid
-families:
+A Model bundles, for every family:
   decls          -- parameter declarations (shapes + logical axes)
-  loss           -- (params, batch) -> scalar   [train]
+  loss           -- (params, batch) -> scalar   [train; decoder-only
+                    families]
   prefill        -- (params, batch, max_len) -> (last_logits, cache)
   decode_step    -- (params, cache, tokens, pos) -> (logits, cache)
   cache_decls    -- (batch, max_len) -> tree of (shape, axes, dtype)
+                    (enc-dec: (batch, max_len, enc_len=None))
 
 Mirrors ``src/repro/models/model.py`` (``Model``, ``_attn_cache``,
-``_ssm_cache``, ``_block_cache``, ``_stack_cache``, ``_positions`` and
-``_build_decoder_only``).  ``Model`` is a ``torch.nn.Module`` on one
-explicit device: ``init_params`` draws a parameter tree there and
-``load_params`` checks one against the declarations and the device; the
-caller keeps the tree, and ``prefill`` and ``decode_step`` take it as an
-argument, as the reference's functions do.  ``loss`` takes f32 master
-weights (bf16 compute), runs the decoder in train mode under the model's
-remat policy and adds the MoE blocks' load-balance loss, as the
-reference's does.  ``kv_quant=True`` gives the int8 KV cache: each
-layer's entry is ``{"k": {"q": int8, "s": f32}, "v": {...}}``, the
-reference's layout, so a reference cache carries across
-(``carry.cache_from_numpy``).  An SSM or hybrid block's cache entry
-``ssm`` holds the f32 state and the bf16 conv rings (``_ssm_cache``),
-whose size does not grow with the sequence; a hybrid block holds it beside
-its attention cache, a ring of ``window`` slots on its windowed layers.
-The audio and VLM families raise ``NotImplementedError`` until their
-slices; the dry-run's ``input_specs`` waits for its.
+``_ssm_cache``, ``_block_cache``, ``_stack_cache``, ``_positions``,
+``_build_decoder_only``, ``_build_encdec`` and ``_build_vlm``).
+``Model`` is a ``torch.nn.Module`` on one explicit device: ``init_params``
+draws a parameter tree there and ``load_params`` checks one against the
+declarations and the device; the caller keeps the tree, and ``prefill``
+and ``decode_step`` take it as an argument, as the reference's functions
+do.  The reference's three builders are one class per family group:
+``Model`` (decoder-only: dense, MoE, SSM, hybrid) and its subclasses
+``EncDecModel`` (audio: seamless) and ``VLMModel`` (vlm:
+llama-3.2-vision), which override its hooks: ``_decls``, ``_memory``
+(the cross-attention memory a prefill's batch carries: the encoder's
+output of ``batch["frames"]``, or ``batch["image_embeds"]`` as given),
+``_run`` (the decoder stack), ``cache_decls`` and ``loss``.  ``loss``
+takes f32 master weights (bf16 compute), runs the decoder in train mode
+under the model's remat policy and adds the MoE blocks' load-balance
+loss, as the reference's does; the enc-dec and VLM families serve only,
+and their ``loss`` raises.  ``kv_quant=True`` gives the int8 KV cache
+(decoder-only families): each layer's entry is ``{"k": {"q": int8, "s":
+f32}, "v": {...}}``, the reference's layout, so a reference cache
+carries across (``carry.cache_from_numpy``).  An SSM or hybrid block's
+cache entry ``ssm`` holds the f32 state and the bf16 conv rings
+(``_ssm_cache``), whose size does not grow with the sequence; a hybrid
+block holds it beside its attention cache, a ring of ``window`` slots on
+its windowed layers.  A cross layer's entry ``cross`` holds the memory's
+bf16 k and v, as long as the memory (seamless: the frames, declared at
+``enc_len`` or, as in the reference, ``max_len``; the VLM:
+``n_frontend_tokens``); decode reads it and never writes it.  The VLM
+stacks its self layers twice, (groups, self layers per group, ...), in
+its parameters and its cache, and its cross layers once; a cross layer
+has no ``ln1`` / ``attn``, so it runs no self-attention.  The dry-run's
+``input_specs`` waits for its slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -37,11 +53,15 @@ import torch
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import ssm as ssm_mod
-from .layers import embed_lookup, logits_fn, rmsnorm, softmax_xent
-from .params import Decls, count_params, init_params, resolve_device
-from .transformer import CACHE_DTYPE, decoder_decls, run_decoder, segments
+from .layers import (embed_lookup, logits_fn, rmsnorm, rmsnorm_decl,
+                     softmax_xent)
+from .params import (Decls, ParamDecl, count_params, init_params,
+                     resolve_device)
+from .transformer import (CACHE_DTYPE, _layer, _stack, _stack_decls,
+                          block_apply, block_decls, decoder_decls,
+                          run_decoder, segments)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -70,13 +90,21 @@ def _ssm_cache(cfg, tp, batch):
     return out
 
 
-def _block_cache(cfg, tp, batch, max_len, window, *, kv_quant=False):
+def _block_cache(cfg, tp, batch, max_len, window, *, cross_len=None,
+                 kv_quant=False):
     entry: Dict[str, Any] = {}
     if cfg.n_heads:
         entry["attn"] = _attn_cache(cfg, tp, batch, max_len, window,
                                     kv_quant)
     if cfg.ssm is not None:
         entry["ssm"] = _ssm_cache(cfg, tp, batch)
+    if cross_len is not None:
+        layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, tp)
+        shape = (batch, cross_len, layout.kv_eff, layout.head_dim)
+        axes = ("batch", "frontend_seq", "kv_heads_eff", "head_dim")
+        entry["cross"] = {"k": (shape, axes, CACHE_DTYPE),
+                          "v": (shape, axes, CACHE_DTYPE)}
     return entry
 
 
@@ -101,7 +129,11 @@ def _positions(B, S, device):
 
 class Model(torch.nn.Module):
     """The decoder-only LM on ``device``: its declarations, and the
-    functions that run a parameter tree held on that device."""
+    functions that run a parameter tree held on that device.  The enc-dec
+    and VLM subclasses override ``_decls``, ``_memory``, ``_run``,
+    ``cache_decls`` and ``loss``."""
+
+    memory_key: Optional[str] = None   # the batch entry of the memory
 
     def __init__(self, cfg: ArchConfig, tp: int, device,
                  remat: str = "minimal", kv_quant: bool = False):
@@ -111,7 +143,10 @@ class Model(torch.nn.Module):
         self.device = device
         self.remat = remat
         self.kv_quant = kv_quant
-        self.decls: Decls = decoder_decls(cfg, tp)
+        self.decls: Decls = self._decls()
+
+    def _decls(self) -> Decls:
+        return decoder_decls(self.cfg, self.tp)
 
     @property
     def n_params(self) -> int:
@@ -157,30 +192,46 @@ class Model(torch.nn.Module):
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return softmax_xent(logits, labels) + aux
 
+    def _memory(self, params, batch) -> Optional[torch.Tensor]:
+        """The cross-attention memory of a prefill's ``batch``: its
+        ``memory_key`` entry (None for a decoder-only model)."""
+        if self.memory_key is None:
+            return None
+        if self.memory_key not in batch:
+            raise ValueError(f"{self.cfg.name}: prefill needs "
+                             f"batch[{self.memory_key!r}]")
+        return batch[self.memory_key]
+
+    def _run(self, params, x, **kw):
+        """The decoder stack; returns (x, caches, aux)."""
+        return run_decoder(self.cfg, self.tp, params, x,
+                           kv_quant=self.kv_quant, **kw)
+
     def prefill(self, params, batch, max_len: Optional[int] = None):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
+        memory = self._memory(params, batch)
         x = embed_lookup(params, tokens, CACHE_DTYPE)
-        x, caches, _ = run_decoder(cfg, self.tp, params, x, mode="prefill",
-                                   positions=_positions(B, S, x.device),
-                                   max_len=max_len, kv_quant=self.kv_quant)
+        x, caches, _ = self._run(params, x, mode="prefill",
+                                 positions=_positions(B, S, x.device),
+                                 memory=memory, max_len=max_len)
         x = rmsnorm(params["ln_f"], x[:, -1:])
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return logits, caches
 
     def decode_step(self, params, cache, tokens, pos: int):
         """One token per sequence at absolute position ``pos``; the cache
-        is written in place and returned."""
+        is written in place and returned (a cross layer's entry is read
+        only)."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = int(pos)
         x = embed_lookup(params, tokens, CACHE_DTYPE)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        x, caches, _ = run_decoder(cfg, self.tp, params, x, mode="decode",
-                                   positions=positions, caches=cache,
-                                   pos=pos, kv_quant=self.kv_quant)
+        x, caches, _ = self._run(params, x, mode="decode",
+                                 positions=positions, caches=cache, pos=pos)
         x = rmsnorm(params["ln_f"], x)
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return logits, caches
@@ -195,19 +246,167 @@ class Model(torch.nn.Module):
         return out
 
 
+def _serving_only(model):
+    return NotImplementedError(f"{model.cfg.name}: training the "
+                               f"{model.cfg.family} family is not ported "
+                               f"yet (its serving path is)")
+
+
+# ---------------------------------------------------------------------------
+# Enc-dec family (seamless: audio frontend stub -> encoder -> decoder)
+# ---------------------------------------------------------------------------
+
+class EncDecModel(Model):
+    """The enc-dec LM: ``frontend_proj`` and a stack of bidirectional
+    encoder blocks turn ``batch["frames"]`` (B, T, d) into the memory
+    every decoder block's cross branch attends to."""
+
+    memory_key = "frames"
+
+    def _decls(self) -> Decls:
+        cfg, tp, d = self.cfg, self.tp, self.cfg.d_model
+        decls: Decls = dict(decoder_decls(cfg, tp))   # embed, layers, ln_f
+        decls["layers"] = _stack_decls(block_decls(cfg, tp, cross=True),
+                                       cfg.n_layers)
+        decls["frontend_proj"] = ParamDecl((d, d), ("embed", None))
+        decls["encoder"] = _stack_decls(block_decls(cfg, tp),
+                                        cfg.n_encoder_layers)
+        decls["ln_enc"] = rmsnorm_decl(d)
+        return decls
+
+    def encode(self, params, frames):
+        """frames (B, T, d) -> the encoder's output (B, T, d), bf16.  The
+        reference runs the encoder blocks in train mode (no cache); here
+        they run in prefill mode without ``max_len``, whose cache is each
+        layer's k and v themselves (no copy, dropped), so their
+        bidirectional self-attention launches the forward flash kernel
+        with ``causal=False`` (train mode is the autograd route)."""
+        B, T, _ = frames.shape
+        x = frames.to(CACHE_DTYPE) @ params["frontend_proj"].to(CACHE_DTYPE)
+        positions = _positions(B, T, x.device)
+        for i in range(self.cfg.n_encoder_layers):
+            x, _, _ = block_apply(self.cfg, self.tp,
+                                  _layer(params["encoder"], i), x,
+                                  mode="prefill", window=None,
+                                  positions=positions, causal=False)
+        return rmsnorm(params["ln_enc"], x)
+
+    def _memory(self, params, batch):
+        return self.encode(params, super()._memory(params, batch))
+
+    def loss(self, params, batch):
+        raise _serving_only(self)
+
+    def cache_decls(self, batch, max_len, enc_len=None):
+        """``enc_len``: the frames' length, which the cross cache holds
+        (the reference's default, ``max_len``, where it is not given)."""
+        entry = _block_cache(self.cfg, self.tp, batch, max_len, None,
+                             cross_len=enc_len or max_len)
+        return {"layers": _stack_cache(entry, self.cfg.n_layers)}
+
+
+# ---------------------------------------------------------------------------
+# VLM family (groups of self layers + one gated cross-attn layer)
+# ---------------------------------------------------------------------------
+
+class VLMModel(Model):
+    """The VLM: ``n_layers / cross_attn_every`` groups, each of
+    ``cross_attn_every - 1`` self layers and one gated cross layer that
+    attends to ``batch["image_embeds"]`` (B, n_frontend_tokens, d) and
+    replaces self-attention (Llama-3.2's image layers)."""
+
+    memory_key = "image_embeds"
+
+    @property
+    def n_groups(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_attn_every
+
+    @property
+    def n_self(self) -> int:
+        return self.cfg.cross_attn_every - 1
+
+    def _decls(self) -> Decls:
+        cfg, tp = self.cfg, self.tp
+        cross_block = {k: v for k, v in
+                       block_decls(cfg, tp, cross=True).items()
+                       if k not in ("ln1", "attn")}
+        decls: Decls = dict(decoder_decls(cfg, tp))
+        del decls["layers"]
+        decls["groups_self"] = _stack_decls(
+            _stack_decls(block_decls(cfg, tp), self.n_self), self.n_groups)
+        decls["groups_cross"] = _stack_decls(cross_block, self.n_groups)
+        return decls
+
+    def _run(self, params, x, *, mode, positions, caches=None, pos=None,
+             memory=None, max_len=None):
+        """Group by group: its self layers (a view of level 2 of the
+        doubly stacked trees), then its cross layer.  Decode writes the
+        self caches in place and hands ``caches`` back."""
+        caches = caches or {}
+        c_self, c_cross = caches.get("groups_self"), \
+            caches.get("groups_cross")
+        kw = dict(mode=mode, window=None, positions=positions, pos=pos,
+                  max_len=max_len)
+        self_out, cross_out = [], []
+        for g in range(self.n_groups):
+            p_self = _layer(params["groups_self"], g)
+            outs = []
+            for i in range(self.n_self):
+                c_l = None if c_self is None else _layer(c_self, g)
+                x, c_out, _ = block_apply(
+                    self.cfg, self.tp, _layer(p_self, i), x,
+                    cache=None if c_l is None else _layer(c_l, i), **kw)
+                outs.append(c_out)
+            x, c_out, _ = block_apply(
+                self.cfg, self.tp, _layer(params["groups_cross"], g), x,
+                cache=None if c_cross is None else _layer(c_cross, g),
+                memory=memory, **kw)
+            self_out.append(outs)
+            cross_out.append(c_out)
+        if mode == "decode":
+            return x, caches, 0.0
+        return x, {"groups_self": _stack([_stack(o) for o in self_out]),
+                   "groups_cross": _stack(cross_out)}, 0.0
+
+    def loss(self, params, batch):
+        raise _serving_only(self)
+
+    def cache_decls(self, batch, max_len):
+        cfg = self.cfg
+        self_entry = _block_cache(cfg, self.tp, batch, max_len, None)
+        cross_entry = _block_cache(
+            dataclasses.replace(cfg, ssm=None), self.tp, batch, max_len,
+            None, cross_len=cfg.n_frontend_tokens)
+        return {
+            "groups_self": _stack_cache(_stack_cache(self_entry,
+                                                     self.n_self),
+                                        self.n_groups),
+            "groups_cross": _stack_cache({"cross": cross_entry["cross"]},
+                                         self.n_groups),
+        }
+
+
+_FAMILY_MODELS = {"audio": EncDecModel, "vlm": VLMModel}
+
+
 def build_model(cfg: ArchConfig, tp: int = 1, remat: str = "minimal",
                 kv_quant: bool = False, *, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (CUDA unless the caller asks for
     the CPU; CUDA without a GPU raises); ``remat`` is the training
     path's recompute policy (minimal, dots or none); ``kv_quant`` gives
-    the int8 KV cache (decode is cache-bandwidth bound)."""
+    the int8 KV cache (decode is cache-bandwidth bound), for the
+    decoder-only families as in the reference."""
     dev = resolve_device(device, "build_model")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                                   f"not ported yet")
+    if kv_quant and cfg.family in _FAMILY_MODELS:
+        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is the "
+                                  f"decoder-only families'")
     # serving runs bf16 matmuls; state (for f32 callers) that f32 products
     # stay full f32, never TF32 (the H100's default, set explicitly)
     torch.backends.cuda.matmul.allow_tf32 = False
     if remat not in ("minimal", "dots", "none"):
         raise ValueError(f"remat {remat!r}: minimal, dots or none")
-    return Model(cfg, tp, dev, remat, kv_quant)
+    return _FAMILY_MODELS.get(cfg.family, Model)(cfg, tp, dev, remat,
+                                                 kv_quant)

@@ -1,5 +1,7 @@
-"""Decoder-only LM assembly: dense, MoE, SSM (mamba2) and hybrid (hymba)
-families share one generic block.
+"""LM assembly: the decoder-only dense, MoE, SSM (mamba2) and hybrid
+(hymba) families share one generic block, which the enc-dec (seamless)
+and VLM (llama-3.2-vision) families extend with a gated cross-attention
+branch (models/model.py assembles those two).
 
 Layer segmentation: archs with heterogeneous layers (hymba's 3 global-
 attention layers among sliding-window layers) are split into *segments* --
@@ -8,29 +10,35 @@ unstacked singles and stacked runs -- so every stacked run is homogeneous.
 Modes:
   train   -- full sequence, no cache, each block under the remat policy,
              MoE aux losses accumulated
-  prefill -- full sequence, last-position logits + KV/SSM cache out
+  prefill -- full sequence, last-position logits + KV/SSM/cross cache out
   decode  -- one token against the cache
 
-Mirrors ``src/repro/models/transformer.py`` for the four decoder-only
-families: the reference's ``lax.scan`` over a segment's stacked layer
-dimension is a Python loop over it, and parameters and caches keep the
-reference's stacked layout (a leading layers dimension).  One routing
-decision is the port's own: the prefill's causal self-attention over full
-(unwindowed) context goes to ``kernels.ops.flash_attention``, the Hopper
-kernel that replaces the reference's Pallas ``flash_attention``, where the
-reference computes the same function with ``attend``; windowed layers and
-decode take ``attend`` as in the reference.  The kernel keeps P.V in f32
-where ``attend_full`` casts the probabilities to bf16 first: the two
-differ by about one bf16 ulp of the context.  Training sends the same
-attention through ``kernels.ops.flash_attention_train`` (the forward
-kernel, and the port's backward kernel for its gradient).  The reference's
-remat policies (``_remat``) become ``torch.utils.checkpoint``
-(non-reentrant, one block at a time): "minimal" saves only each block's
-input, "dots" saves the matmul outputs too, "none" recomputes nothing.  A
-stacked segment may also arrive as a list of per-layer trees: the training
-path hands the model per-layer leaves, since the gradient of a layer's
-view of a stacked leaf would allocate a zero tensor of the whole leaf for
-every layer.  With ``kv_quant`` the cache holds int8 codes and f32 scales
+Mirrors ``src/repro/models/transformer.py``: the reference's ``lax.scan``
+over a segment's stacked layer dimension is a Python loop over it, and
+parameters and caches keep the reference's stacked layout (a leading
+layers dimension).  One routing decision is the port's own: every train
+or prefill attention over full (unwindowed) context goes to the Hopper
+flash kernel that replaces the reference's Pallas ``flash_attention``,
+where the reference computes the same function with ``attend`` (self)
+or ``attend_full`` / ``attend_chunked`` (cross): the causal
+self-attention, and with ``causal=False`` the enc-dec encoder's
+self-attention and every cross-attention layer (q against the memory's
+k and v, T keys).  Prefill launches the forward kernel
+(``kernels.ops.flash_attention``, ``flash_prefill``); training sends the
+same views through ``kernels.ops.flash_attention_train`` (the forward
+kernel, and the port's backward kernel for its gradient).  Windowed
+layers and decode take ``attend`` / ``attend_full`` as in the reference,
+the cross layers' decode step too (S = 1 against the cached memory).
+The kernel keeps P.V in f32 where ``attend_full`` casts the
+probabilities to bf16 first: the two differ by about one bf16 ulp of the
+context.  The reference's remat policies (``_remat``) become
+``torch.utils.checkpoint`` (non-reentrant, one block at a time):
+"minimal" saves only each block's input, "dots" saves the matmul outputs
+too, "none" recomputes nothing.  A stacked segment may also arrive as a
+list of per-layer trees: the training path hands the model per-layer
+leaves, since the gradient of a layer's view of a stacked leaf would
+allocate a zero tensor of the whole leaf for every layer.  With
+``kv_quant`` the cache holds int8 codes and f32 scales
 (``attention.quantize_kv``): prefill attends on the unquantized k/v and
 quantizes its cache; decode writes the new step's codes and scales in
 place, then dequantizes the whole cache and attends, as the reference
@@ -40,8 +48,12 @@ projections, and the recurrent step in decode, which writes the state and
 the conv rings in place; a hybrid block runs attention and the SSD side by
 side on the same normed input and fuses them as ``0.5 * (a * attn_scale +
 s * ssm_scale)``.  Hymba's hybrid blocks declare ``ln_ssm``, as the
-reference's do, and never read it (its gradient is zero).
-Cross-attention blocks wait for their slice.
+reference's do, and never read it (its gradient is zero).  A block
+declared with ``cross=True`` adds ``ln_cross`` and ``cross`` (q, k, v, o
+weights and a zero-initialised gate): ``_cross_branch`` projects the
+memory's k and v in prefill, caches them, reads them back in decode, and
+adds ``tanh(gate) * o(ctx)`` to the residual after the self-attention
+(or SSM) branch, before the FFN.
 """
 from __future__ import annotations
 
@@ -108,13 +120,10 @@ def _stack_decls(decls: Decls, n: int) -> Decls:
 
 
 # ---------------------------------------------------------------------------
-# Generic block (dense and MoE)
+# Generic block
 # ---------------------------------------------------------------------------
 
 def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
-    if cross:
-        raise NotImplementedError(f"{cfg.name}: cross-attention blocks are "
-                                  f"not ported yet")
     d = cfg.d_model
     decls: Decls = {}
     if cfg.n_heads:
@@ -132,6 +141,11 @@ def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
             # per-branch learned output scales (Hymba's branch fusion)
             decls["attn_scale"] = ParamDecl((d,), (None,), init="ones")
             decls["ssm_scale"] = ParamDecl((d,), (None,), init="ones")
+    if cross:
+        layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, tp)
+        decls["ln_cross"] = rmsnorm_decl(d)
+        decls["cross"] = attn.attention_decls(d, layout, False, cross=True)
     if cfg.moe is not None:
         decls["ln2"] = rmsnorm_decl(d)
         decls["moe"] = moe_decls(d, cfg.moe)
@@ -141,26 +155,29 @@ def block_decls(cfg: ArchConfig, tp: int, *, cross: bool = False) -> Decls:
     return decls
 
 
-def flash_prefill(q, k, v):
-    """Causal self-attention of a prefill through the flash kernel: q
-    (B,S,K,G,H) goes in as the view (B,K,G,S,H) and k, v (B,S,K,H) as views
-    (B,K,1,S,H).  The kernel reads them through their strides, each kv head
-    once for its G query heads, and writes its output in q's (B,S,K,G,H)
-    order, so no side makes a copy."""
+def flash_prefill(q, k, v, causal: bool = True):
+    """Attention of a prefill through the flash kernel: q (B,S,K,G,H) goes
+    in as the view (B,K,G,S,H) and k, v (B,T,K,H) as views (B,K,1,T,H).
+    The kernel reads them through their strides, each kv head once for its
+    G query heads, and writes its output in q's (B,S,K,G,H) order, so no
+    side makes a copy.  ``causal`` masks key t > query s by index (self-
+    attention, where both are positions 0..S-1); without it every query
+    sees all T keys (the encoder, cross-attention)."""
     out = ops.flash_attention(q.permute(0, 2, 3, 1, 4),
                               k.permute(0, 2, 1, 3).unsqueeze(2),
-                              v.permute(0, 2, 1, 3).unsqueeze(2), causal=True)
+                              v.permute(0, 2, 1, 3).unsqueeze(2),
+                              causal=causal)
     return out.permute(0, 3, 1, 2, 4)
 
 
-def flash_train(q, k, v):
+def flash_train(q, k, v, causal: bool = True):
     """``flash_prefill`` with a gradient: the same views through
     ``ops.flash_attention_train``, whose backward hands back gradients of
     the views' shapes."""
     out = ops.flash_attention_train(q.permute(0, 2, 3, 1, 4),
                                     k.permute(0, 2, 1, 3).unsqueeze(2),
                                     v.permute(0, 2, 1, 3).unsqueeze(2),
-                                    causal=True)
+                                    causal=causal)
     return out.permute(0, 3, 1, 2, 4)
 
 
@@ -186,10 +203,11 @@ def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
         ck, cv = attn.cache_update(cache["k"], cache["v"], k, v, pos, window)
         ctx = attn.attend_decode(q, ck, cv, pos, window)
         return ctx, {"k": ck, "v": cv}
-    if causal and window is None:
+    if window is None:
         # q and k share the sequence's positions, arange(S) (model.py), so
         # the kernel's causal mask by index is the mask by position
-        ctx = (flash_train if mode == "train" else flash_prefill)(q, k, v)
+        ctx = (flash_train if mode == "train" else flash_prefill)(
+            q, k, v, causal=causal)
     else:
         pos1d = positions[0]
         ctx = attn.attend(q, k, v, pos1d, pos1d, causal=causal,
@@ -223,15 +241,52 @@ def _attn_branch(cfg, layout, p, h, *, mode, window, positions, cache, pos,
     return ctx, {"k": kc.to(CACHE_DTYPE), "v": vc.to(CACHE_DTYPE)}
 
 
+def _cross_branch(cfg, tp, p, x, *, mode, memory, cache):
+    """Cross-attention to a (B,T,d) memory (encoder output / image
+    embeddings): q from the normed residual, no RoPE and no qk-norm; K/V
+    projected per layer from the memory (train/prefill, and cached by
+    prefill) or read from the cache (decode, which hands the cache back
+    unchanged).  Gated (tanh, zero-init) like Llama-3.2's image layers.
+    Returns (out, cache_out)."""
+    layout = attn.resolve_head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim, tp)
+    h = rmsnorm(p["ln_cross"], x)
+    q = torch.einsum("bsd,dkgh->bskgh", h, p["cross"]["wq"].to(h.dtype))
+    if mode == "decode":
+        # one query against every cached key: no mask
+        T = cache["k"].shape[1]
+        ctx = attn.attend_full(
+            q, cache["k"].to(h.dtype), cache["v"].to(h.dtype),
+            torch.zeros(1, dtype=torch.int32, device=h.device),
+            torch.zeros(T, dtype=torch.int32, device=h.device),
+            causal=False, window=None)
+        cache_out = cache
+    else:
+        mem = memory.to(h.dtype)
+        ik = torch.einsum("btd,dkh->btkh", mem, attn._expand_kv_weight(
+            p["cross"]["wk"].to(h.dtype), layout))
+        iv = torch.einsum("btd,dkh->btkh", mem, attn._expand_kv_weight(
+            p["cross"]["wv"].to(h.dtype), layout))
+        ctx = (flash_train if mode == "train" else flash_prefill)(
+            q, ik, iv, causal=False)
+        cache_out = None if mode == "train" else \
+            {"k": ik.to(CACHE_DTYPE), "v": iv.to(CACHE_DTYPE)}
+    gate = torch.tanh(p["cross"]["gate"].to(h.dtype))
+    return gate * attn.output_proj(p["cross"], ctx, layout), cache_out
+
+
 def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, window: Optional[int],
                 positions: Optional[torch.Tensor],
                 cache: Optional[Dict[str, Any]] = None,
-                pos: Optional[int] = None, causal: bool = True,
+                pos: Optional[int] = None,
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
                 max_len: Optional[int] = None, kv_quant: bool = False):
     """One decoder block. Returns (x, cache_out, aux_loss): the MoE
     FFN's load-balance loss in train mode, else 0.0 (a Python float, so a
-    dense block launches nothing for it)."""
+    dense block launches nothing for it).  A block with ``cross`` params
+    runs its cross branch when given a ``memory`` (train, prefill) or a
+    cache holding ``cross`` (decode)."""
     aux = 0.0
     cache = cache or {}
     cache_out: Dict[str, Any] = {}
@@ -265,6 +320,13 @@ def block_apply(cfg: ArchConfig, tp: int, p: Dict[str, Any],
         x = x + s_out
         if mode != "train":
             cache_out["ssm"] = c_ssm
+    if "cross" in p and (memory is not None or "cross" in cache):
+        c_out, c_cache = _cross_branch(cfg, tp, p, x, mode=mode,
+                                       memory=memory,
+                                       cache=cache.get("cross"))
+        x = x + c_out
+        if mode != "train":
+            cache_out["cross"] = c_cache
     if cfg.moe is not None:
         h = rmsnorm(p["ln2"], x)
         mo, moe_aux = moe_apply(p["moe"], h, cfg.moe)
@@ -360,12 +422,14 @@ def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
                 x: torch.Tensor, *, mode: str,
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[Dict[str, Any]] = None,
-                pos: Optional[int] = None, causal: bool = True,
+                pos: Optional[int] = None,
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
                 max_len: Optional[int] = None, kv_quant: bool = False,
                 remat_policy: str = "minimal"):
     """Run all segments. Returns (x, caches_out, aux): aux sums the
     blocks' load-balance losses in train mode (0.0 where there are none).
-    In decode the caches are written in place and returned; train returns
+    ``memory`` feeds the blocks' cross branches (an enc-dec decoder).  In
+    decode the caches are written in place and returned; train returns
     no caches."""
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode={mode!r}: the port runs train, "
@@ -375,7 +439,7 @@ def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
         for seg in segments(cfg):
             fn = partial(block_apply, cfg, tp, mode="train",
                          window=seg.window, positions=positions,
-                         causal=causal)
+                         memory=memory, causal=causal)
             body = _remat(lambda p, h, _fn=fn: _fn(p, h)[::2], remat_policy)
             p_seg = params[seg.name]
             for i in range(seg.n_layers if seg.scanned else 1):
@@ -388,7 +452,8 @@ def run_decoder(cfg: ArchConfig, tp: int, params: Dict[str, Any],
         p_seg = params[seg.name]
         c_seg = caches.get(seg.name)
         kw = dict(mode=mode, window=seg.window, positions=positions,
-                  pos=pos, causal=causal, max_len=max_len, kv_quant=kv_quant)
+                  pos=pos, memory=memory, causal=causal, max_len=max_len,
+                  kv_quant=kv_quant)
         if not seg.scanned:
             x, caches_out[seg.name], _ = block_apply(cfg, tp, p_seg, x,
                                                      cache=c_seg, **kw)

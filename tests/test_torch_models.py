@@ -629,18 +629,31 @@ def test_serve_generate_first_token_is_the_references():
                                   np.asarray(logits)[:, -1].argmax(-1))
 
 
+def _astuples(decls):
+    """A declaration tree with each ``ParamDecl`` (either package's) as a
+    tuple of its fields."""
+    if isinstance(decls, dict):
+        return {k: _astuples(v) for k, v in decls.items()}
+    return dataclasses.astuple(decls)
+
+
 def test_families_not_yet_ported_raise():
-    """The audio and VLM families and cross-attention blocks still raise;
-    the SSM and hybrid families build with the reference's parameter
-    counts (at full width too, from the declarations alone), as do the
-    MoE family and the int8 cache; so do an unknown mode and remat
-    policy."""
-    for arch in ("seamless-m4t-medium", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError):
-            build_model(configs.get(arch).reduced(), device="cpu")
+    """Every family now builds.  The audio (enc-dec) and VLM families
+    build with the reference's parameter counts and cache bytes (at full
+    width too, from the declarations alone; seamless's cross cache at
+    ``enc_len``), cross-attention blocks declare what the reference's do,
+    and the two families' ``loss`` (training, not ported) raises, as the
+    int8 cache on them does; the SSM and hybrid families build with the
+    reference's parameter counts, as do the MoE family and the int8
+    cache; an unknown mode and remat policy raise."""
+    from repro.models.transformer import block_decls as ref_block_decls
     from repro_torch.models.transformer import block_decls, run_decoder
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        block_decls(configs.get("qwen3-4b").reduced(), 1, cross=True)
+    for arch in ("qwen3-4b", "seamless-m4t-medium", "llama-3.2-vision-11b"):
+        for cfg, ref_cfg in ((configs.get(arch), ref_configs.get(arch)),
+                             (configs.get(arch).reduced(),
+                              ref_configs.get(arch).reduced())):
+            assert _astuples(block_decls(cfg, 1, cross=True)) == \
+                _astuples(ref_block_decls(ref_cfg, 1, cross=True))
     def nbytes(tree):
         """Bytes a cache declaration holds (torch or numpy dtypes)."""
         if isinstance(tree, dict):
@@ -667,6 +680,29 @@ def test_families_not_yet_ported_raise():
         assert model.n_params == n
         assert (nbytes(model.cache_decls(4, 544)),
                 nbytes(model.cache_decls(1, 4098))) == cache
+    for arch, n, cache in (("seamless-m4t-medium", 878_245_900,
+                            207_618_048),
+                           ("llama-3.2-vision-11b", 9_775_157_256,
+                            1_124_597_760)):
+        kw = {"enc_len": 512} if arch.startswith("seamless") else {}
+        for cfg, ref_cfg in ((configs.get(arch), ref_configs.get(arch)),
+                             (configs.get(arch).reduced(),
+                              ref_configs.get(arch).reduced())):
+            model = build_model(cfg, device="cpu")
+            ref_model = ref_build_model(ref_cfg, tp=1)
+            assert model.n_params == ref_model.n_params
+            for shape in ((4, 544), (1, 4098)):
+                assert nbytes(model.cache_decls(*shape, **kw)) \
+                    == nbytes(ref_model.cache_decls(*shape, **kw))
+            with pytest.raises(NotImplementedError, match="training"):
+                model.loss({}, {})
+            with pytest.raises(NotImplementedError, match="int8"):
+                build_model(cfg, kv_quant=True, device="cpu")
+        model = build_model(configs.get(arch), device="cpu")
+        assert model.n_params == n
+        assert nbytes(model.cache_decls(4, 544, **kw)) == cache
+    vlm = build_model(configs.get("llama-3.2-vision-11b"), device="cpu")
+    assert nbytes(vlm.cache_decls(4, 544)["groups_cross"]) == 839_385_088
     moe = build_model(configs.get("olmoe-1b-7b").reduced(), device="cpu")
     assert "moe" in moe.decls["layers"] and "mlp" not in moe.decls["layers"]
     model = build_model(configs.get("qwen3-4b").reduced(), kv_quant=True,

@@ -216,9 +216,10 @@ def test_moe_family_loss_and_gradients_match_the_reference(monkeypatch):
                                 positions=torch.arange(32).expand(2, 32))
         assert float(aux) > 4 * LOSS_TOL
 
-    def plain(q, k, v):
+    def plain(q, k, v, causal=True):
         pos = torch.arange(q.shape[1])
-        return attn.attend_full(q, k, v, pos, pos, causal=True, window=None)
+        return attn.attend_full(q, k, v, pos, pos, causal=causal,
+                                window=None)
     monkeypatch.setattr(transformer, "flash_train", plain)
     got_loss, got = loss_and_grads(model, params, tbatch)
     assert float(got_loss) == float(loss)
