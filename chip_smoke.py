@@ -168,7 +168,18 @@ Phases, one line each (any failure raises and the script exits non-zero):
    cache's bytes against its declarations (seamless's at ``enc_len``)
    and the logits with the memory zeroed against the real ones (``[check]
    lm=cross_gate_open``: the gap must be above 0).  ``[lm] arch=...
-   seconds=`` closes each model;
+   seconds=`` closes each model.  Beside every profiled prefill and
+   decode step (each model, each shape, the int8 cache too) a
+   ``[dryrun]`` line (``dryrun_beside``): ``launch.dryrun.run_cell`` on
+   meta tensors at the step's arch, batch, length and kind gives the
+   counted flops and bytes, ``model_flops``, ``compute_ms`` and
+   ``memory_ms`` with H100 constants, ``bytes_floor_ms`` (argument bytes
+   less an untied embedding table over 3.35 TB/s), each over the
+   measured kernel ms, and the count's peak estimate beside
+   ``max_memory_allocated``; the kernel ms must be at or above
+   ``compute_ms`` and ``bytes_floor_ms``, and the count's params and
+   cache bytes (a decode step's input, a prefill's output) must equal
+   the measured ones;
 9. segmented execution (``segmented_phase``; it runs after phase 7 and
    before phase 8, and frees its databases first) on 4 logical shards of
    the card (``make_query_mesh(4)``): Q1-Q7 and Qorders on the main
@@ -223,7 +234,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    forward's lse, against float64 autograd of ``flash_attention_plain``
    on the model's permuted views: bf16 and f32, head dims 64/96/128,
    causal and not, G = 1 and 4, S = 300, S != T both ways (130 x 200
-   causal, 200 x 70 not), and the training shapes 4 x 512 and 1 x 4096;
+   causal, 200 x 70 not), and the training shapes 4 x 512 and 1 x 4096
+   (qwen3-4b's) and seamless-m4t-medium's non-causal 4 x 512 (16 heads
+   of 64, G = 1);
    max |err| of dq, dk, dv within ``BWD_TOL`` times max(1, max |want|),
    the plain backward's gap printed beside it, and a second launch bit
    for bit the first;
@@ -238,14 +251,30 @@ Phases, one line each (any failure raises and the script exits non-zero):
    launches and a finite loss (``[train]`` lines: step ms, tokens/s),
    the peak ``max_memory_allocated`` of the steps, and of one profiled
    step the device busy share, the kernel ms and the backward kernels'
-   ms and share of them;
+   ms and share of them, and the ``[dryrun]`` line of that step (as in
+   phase 8, its state bytes -- f32 parameters, two moments, the step --
+   equal to the measured state's);
    b. two ``flash_attention_bwd`` JSON rows at phase 8's shapes (event
    and device ms, bound, plain ms, SDPA's backward alone with kv
    expanded as ``library_ms``, and the launches of one training step);
    d. ``python -m repro_torch.launch.train`` at d 512, 4 layers, vocab
    2048 (head dim 64), run twice in subprocesses, straight and with
    ``--fail-at-step 8`` (buddy restore from the last good epoch, then
-   replay): the two final checkpoints equal bit for bit.
+   replay): the two final checkpoints equal bit for bit;
+   e. seamless-m4t-medium (878,245,900 parameters) trained as in c, with
+   every ``cross/gate`` opened to 1.0 (declared zero, it leaves the cross
+   weights and the whole encoder with zero gradients) and seeded bf16
+   frames (4, 512, 1024) a step: loss and grad norm through the kernels
+   and the plain versions, the wq, wk and wv gradients of encoder layers
+   0 and 11 and of decoder layer 0's cross branch within
+   ``TRAIN_LEAF_RTOL`` and non-zero; flash calls by role and direction
+   (``TrainFlashRoles``: 24 forward calls with the remat recompute and 12
+   backward calls each for the "encoder", "self" and "cross" layers; 72
+   + 72 launches, nothing else); 5 AdamW steps (``[train]
+   arch=seamless-m4t-medium`` lines), the profiled step and its
+   ``[dryrun]`` line; two ``flash_attention_bwd`` JSON rows, an encoder
+   layer's and a cross layer's (q (4, 16, 1, 512, 64), non-causal), on
+   the inputs the step gave their first backward calls.
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
@@ -315,6 +344,7 @@ LM_LONG = (1, 4096, 2)
 # tokens and its decode wraps to slot 0
 LM_FAMILY_SHAPES = {"hymba-1.5b": (LM_SERVE, LM_LONG)}
 LM_STEPS = 4                    # decode steps held against a prefill
+DECODE_SLACK = 4                # slots past the prompt of a checked cache
 # the chunked SSD against its sequential oracle in f32: max |err| within
 # SSD_TOL x max(1, max |want|)
 SSD_TOL = 1e-3
@@ -3392,17 +3422,12 @@ def _flash_check(got, want, dtype: str) -> dict:
 
 def _flash_work(q, k, causal: bool, tensors: int = 2,
                 flops_per_d: int = 4):
-    """Bytes and flops of one attention call on q ``(..., S, d)`` and k
-    ``(..., T, d)`` (k unexpanded): ``tensors`` q-shaped and as many
-    k-shaped tensors each read or written once, and ``flops_per_d`` d
-    flops per unmasked (query, key) pair.  The forward: q, out; k, v;
-    2 d for q.k and 2 d for P.V."""
-    S, d = q.shape[-2:]
-    T = k.shape[-2]
-    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
-    n_q = q.numel() // (S * d)
-    nbytes = tensors * (q.numel() + k.numel()) * q.element_size()
-    return nbytes, flops_per_d * d * pairs * n_q
+    """Bytes and flops of one attention call on the tensors q and k:
+    ``kernels.flash_attention.flash_work``, the formula the dry-run's
+    meta route counts too."""
+    from repro_torch.kernels.flash_attention import flash_work
+    return flash_work(q.shape, k.shape, causal, q.element_size(), tensors,
+                      flops_per_d)
 
 
 def _sdpa_inputs(q, k, v):
@@ -3680,13 +3705,8 @@ def _decl_cache(model, batch, max_len, **kw):
     """The cache ``model.cache_decls`` declares (``kw``: an enc-dec
     model's ``enc_len``), as meta tensors (shapes and dtypes, no
     memory)."""
-    import torch
-
-    def meta(tree):
-        if isinstance(tree, dict):
-            return {k: meta(v) for k, v in tree.items()}
-        return torch.empty(tree[0], dtype=tree[2], device="meta")
-    return meta(model.cache_decls(batch, max_len, **kw))
+    from repro_torch.models.model import meta_cache
+    return meta_cache(model.cache_decls(batch, max_len, **kw))
 
 
 def lm_flash_rows(model, params, prompts, gens, flash, label, moe=None,
@@ -3812,7 +3832,7 @@ def lm_decode_checks(model, params, rng, label, moe=None, memory=None):
                           dtype=torch.int32, device=model.device)
     with MoeCapture() as short:
         _, cache = model.prefill(params, _batch(model, tok[:, :S], memory),
-                                 max_len=S + 4)
+                                 max_len=S + DECODE_SLACK)
     ld, _ = model.decode_step(params, cache, tok[:, S:], S)
     with MoeCapture() as full:
         lf, _ = model.prefill(params, _batch(model, tok, memory))
@@ -3852,17 +3872,25 @@ def lm_decode_checks(model, params, rng, label, moe=None, memory=None):
     return cache, tok
 
 
-def lm_profiles(model, params, prompt, cache, tok, label,
+def lm_profiles(model, params, prompt, cache, tok, label, max_len,
                 memory=None) -> None:
     """Where a prefill's and a decode step's device time goes: ``prompt``
     (B, S) (with ``memory``, for a model with cross layers) and one
-    decode step from ``cache``, a prefill of ``tok[:, :S]`` (each call
-    writes the same token at position S again)."""
+    decode step from ``cache`` (``max_len`` slots), a prefill of
+    ``tok[:, :S]`` (each call writes the same token at position S
+    again); beside each, the dry-run's count of the same step
+    (``dryrun_beside``)."""
+    import torch
     B, S = prompt.shape
     step = lambda: model.decode_step(params, cache, tok[:, S:S + 1], S)
-    for what, fn in ((f"prefill {B}x{S}", lambda: model.prefill(
-            params, _batch(model, prompt, memory))), ("decode step", step)):
+    prefill = lambda: model.prefill(params, _batch(model, prompt, memory))
+    out_bytes = _cache_bytes(prefill()[1])
+    for what, fn, kind, n, cache_bytes in (
+            (f"prefill {B}x{S}", prefill, "prefill", S, out_bytes),
+            ("decode step", step, "decode", max_len, _cache_bytes(cache))):
+        torch.cuda.reset_peak_memory_stats()
         host_ms = _host_ms(fn)
+        peak = torch.cuda.max_memory_allocated()
         _, kernels = _profile(fn)
         if not kernels:
             _say("profile", lm=what.replace(" ", "_"), arch=label,
@@ -3878,6 +3906,76 @@ def lm_profiles(model, params, prompt, cache, tok, label,
              flash_ms=f"{flash:.4f}", kernels=len(kernels),
              top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
                              for k2 in top}, separators=(",", ":")))
+        dryrun_beside(model, kind, B, n, dev_ms, label, params,
+                      cache_bytes=cache_bytes, memory=memory, peak=peak)
+
+
+def dryrun_beside(model, kind, B, S, kernel_ms, label, params,
+                  cache_bytes=None, state=None, memory=None, peak=None):
+    """The dry-run beside a measured step (phases 8 and 11):
+    ``launch.dryrun.run_cell`` on meta at the step's arch, batch, length
+    (a decode step: its cache's slots) and kind, with the model's remat
+    policy and cache type.  Prints a ``[dryrun]`` line: counted flops and
+    bytes, ``model_flops``, ``compute_ms`` and ``memory_ms`` (H100
+    constants), ``bytes_floor_ms``, the measured kernel ms and each term
+    over it, and the count's peak estimate (arguments plus the peak of
+    live temporaries) beside ``peak`` (``torch.cuda.max_memory_allocated``
+    around the measured calls).  Fails unless the kernel ms is at or above
+    both firm bounds, ``compute_ms`` (counted flops over 989 TFLOP/s) and
+    ``bytes_floor_ms`` (argument bytes less an untied embedding table
+    over 3.35 TB/s; ``memory_ms``, from summed op bytes, is printed, not
+    held, since L2 can serve a small tensor twice), and unless the
+    count's params bytes equal ``params``'s, its cache bytes
+    ``cache_bytes`` (a decode step's input, a prefill's output) and, for
+    a training step, its state bytes ``state``'s (f32 parameters, two
+    moments and the step; the line adds the f32 gradients, temporaries
+    of the step, as ``state_with_grads_bytes``)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun, op_cost
+    memory_len = memory.shape[1] if memory is not None \
+        and model.cfg.family == "audio" else None
+    rec = dryrun.run_cell(model.cfg.name, ShapeConfig(
+        f"{kind}_{B}x{S}", S, B, kind), rc=RunConfig(
+            remat_policy=model.remat), kv_quant=model.kv_quant, save=False,
+        memory_len=memory_len)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run of {label} {kind} {B}x{S}: "
+                             f"{rec.get('error', rec)}")
+    want = {"params_bytes": _cache_bytes(params)}
+    if cache_bytes is not None:
+        want["cache_bytes"] = cache_bytes
+    if state is not None:
+        want["state_bytes"] = op_cost.tree_bytes(state)
+    got = {k: rec[k] for k in want}
+    compute_ms, memory_ms = rec["compute_s"] * 1e3, rec["memory_s"] * 1e3
+    floor_ms = rec["bytes_floor_s"] * 1e3
+    _say("dryrun", arch=label, kind=kind, batch=B, seq=S,
+         flops=f"{rec['flops']:.6g}", bytes=f"{rec['bytes']:.6g}",
+         model_flops=f"{rec['model_flops']:.6g}",
+         compute_ms=f"{compute_ms:.4f}", memory_ms=f"{memory_ms:.4f}",
+         bytes_floor_ms=f"{floor_ms:.4f}", kernel_ms=f"{kernel_ms:.4f}",
+         compute_share=f"{compute_ms / kernel_ms:.4f}",
+         memory_share=f"{memory_ms / kernel_ms:.4f}",
+         floor_share=f"{floor_ms / kernel_ms:.4f}",
+         dominant=rec["dominant"],
+         useful_flops_ratio=rec["useful_flops_ratio"],
+         arg_bytes=int(rec["arg_bytes"]), **{k: int(v) for k, v in
+                                             got.items()},
+         **({} if state is None else {
+             "state_with_grads_bytes": int(rec["state_bytes"]
+                                           + rec["params_bytes"])}),
+         peak_estimate_gib=f"{(rec['arg_bytes'] + rec['peak_bytes']) / 2**30:.3f}",
+         max_memory_allocated_gib="not measured" if peak is None
+         else f"{peak / 2**30:.3f}", fits_80gb=rec["fits_80gb"],
+         count_s=rec["count_s"])
+    if got != want:
+        raise AssertionError(f"dry-run of {label} {kind} {B}x{S}: bytes "
+                             f"{got}, measured {want}")
+    if kernel_ms < compute_ms or kernel_ms < floor_ms:
+        raise AssertionError(f"{label} {kind} {B}x{S}: {kernel_ms} kernel "
+                             f"ms below a firm bound (flops {compute_ms} "
+                             f"ms, argument bytes {floor_ms} ms)")
+    return rec
 
 
 def _prompts(cfg, shapes, device, seed=0):
@@ -3919,7 +4017,8 @@ def lm_qwen(device, seen):
                          seen=seen)
     flash_extra_cases(cfg, device)
     cache, tok = lm_decode_checks(model, params, rng, cfg.name)
-    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name)
+    lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name,
+                LM_SERVE[1] + DECODE_SLACK)
     del cache
     lm_int8(model, params, prompts[LM_SERVE], gens[LM_SERVE], device)
     return rows
@@ -4018,7 +4117,7 @@ def lm_int8(model, params, prompt, bf16_gen, device) -> None:
          int8_vs_bf16_decode_logit_gap=f"{gap:.4g}",
          logit_std=f"{float(real_b.std()):.4g}", argmax_agree=f"{agree}/{B}")
     lm_profiles(qmodel, params, prompt, qcache, torch.cat(
-        [prompt, nxt], dim=1), label)
+        [prompt, nxt], dim=1), label, S + n_new)
 
 
 def lm_steps_check(model, params, rng, shape, label):
@@ -4176,7 +4275,7 @@ def lm_family(arch, device, seen):
                                           separators=(",", ":")),
              max_expert_load=max(loads), min_expert_load=min(loads))
     lm_profiles(model, params, prompts[LM_SERVE], cache, tok, cfg.name,
-                memories[LM_SERVE])
+                LM_SERVE[1] + DECODE_SLACK, memories[LM_SERVE])
     del cache
     if model.memory_key is not None:
         lm_cross_checks(model, params, prompts[LM_SERVE],
@@ -4192,7 +4291,7 @@ def lm_family(arch, device, seen):
                 lm_profiles(model, params, prompts[shape], cache,
                             torch.cat([prompts[shape],
                                        prompts[shape][:, -1:]], 1),
-                            cfg.name)
+                            cfg.name, S + 1)
                 del cache
     return rows
 
@@ -4221,6 +4320,9 @@ LSE_TOL = 1e-4
 # the G query heads into dk and dv reads 0.86-0.99 on wk and wv)
 TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL = 2e-2, 2e-2, 3e-2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+# phase 11e: the enc-dec family trained at full width (its f32 state,
+# 878,245,900 parameters x 16 bytes with the gradients, is 14.1 GB)
+ENCDEC_ARCH = "seamless-m4t-medium"
 # phase 11d: the driver at a small config (head dim 64)
 DRIVER_ARGS = ("--d-model", "512", "--layers", "4", "--vocab", "2048",
                "--steps", "12", "--batch", "8", "--seq", "128",
@@ -4328,9 +4430,10 @@ def flash_bwd_checks(device) -> None:
     """Phase 11a: ``flash_attention_bwd`` on the card, given the
     forward's lse, against float64 autograd of the attention, with the
     plain backward's gap printed beside it, and bit for bit against its
-    own second launch.  The last two cases are the training path's own
-    (qwen3-4b: 8 kv heads of 4 q heads, d 128) at 4 x 512 and 1 x
-    4096."""
+    own second launch.  The last three cases are the training paths'
+    own: qwen3-4b (8 kv heads of 4 q heads, d 128) at 4 x 512 and 1 x
+    4096, and seamless-m4t-medium's non-causal encoder and cross layers
+    (16 heads of 64, G = 1) at 4 x 512."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -4351,6 +4454,12 @@ def flash_bwd_checks(device) -> None:
     cases += [(f"bfloat16_train_{B}x{S}", (B, S, K, G, d), S, "bfloat16",
                True) for B, S in ((LM_SERVE[0], LM_SERVE[1]),
                                   (LM_LONG[0], LM_LONG[1]))]
+    # phase 11e's encoder and cross layers (16 heads of 64, G = 1)
+    enc = configs.get(ENCDEC_ARCH)
+    cases += [(f"bfloat16_{ENCDEC_ARCH}_{TRAIN_BATCH}x{TRAIN_SEQ}_full",
+               (TRAIN_BATCH, TRAIN_SEQ, enc.n_kv_heads,
+                enc.n_heads // enc.n_kv_heads, enc.resolved_head_dim),
+               TRAIN_SEQ, "bfloat16", False)]
     for name, (B, S, K, G, d), T, dt, causal in cases:
         tdt = getattr(torch, dt)
         q, _, _ = _model_views(B, S, K, G, d, tdt, g, device)
@@ -4393,12 +4502,11 @@ def flash_bwd_checks(device) -> None:
                                  f"{same}")
 
 
-def flash_bwd_row(shape, launches, device) -> dict:
-    """Phase 11b: the ``flash_attention_bwd`` JSON row at one of phase 8's
-    prefill shapes, on the model's views: event and device ms, bound,
-    plain ms, and SDPA's backward alone (kv expanded) as the yardstick."""
+def _qwen_bwd_inputs(shape, device):
+    """q, k, v, out, dout and lse at one of phase 8's prefill shapes, as
+    qwen3-4b's train mode hands them to the backward (the model's views,
+    the forward kernel's out and lse)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels import ops
     cfg = configs.get(LM_ARCH)
@@ -4410,23 +4518,39 @@ def flash_bwd_row(shape, launches, device) -> dict:
     out, lse = ops.flash_attention(q, k, v, return_lse=True)
     dout = torch.randn(out.shape, generator=g, device=device).to(
         torch.bfloat16)
-    fn = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse)
-    plain = lambda: ops.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    return q, k, v, out, dout, lse
+
+
+def flash_bwd_row(q, k, v, out, dout, lse, causal, launches,
+                  label) -> dict:
+    """Phases 11b and 11e: a ``flash_attention_bwd`` JSON row on these
+    inputs: event and device ms, bound, plain ms, and SDPA's backward
+    alone (kv expanded) as the yardstick; each gradient held to the plain
+    backward within phase 11a's bf16 ``BWD_TOL`` times its own largest
+    magnitude (no floor of 1: an encoder layer's gradients in a training
+    step are far below 1)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    B, K, G, S, d = q.shape
+    fn = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal)
+    plain = lambda: ops.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                                  causal=causal)
     # dq, dk, dv each within phase 11a's bf16 limit of the plain backward
     errs, limits = [], []
     for a, b in zip(fn(), plain()):
         errs.append(float((a.float() - b.float()).abs().max()))
-        limits.append(BWD_TOL["bfloat16"] * max(1.0, float(
-            b.float().abs().max())))
+        limits.append(BWD_TOL["bfloat16"] * float(b.float().abs().max()))
     err = max(errs)
     # q, out, dout, dq; k, v, dk, dv; lse; the gradient's five products
-    nbytes, flops = _flash_work(q, k, True, tensors=4, flops_per_d=10)
+    nbytes, flops = _flash_work(q, k, causal, tensors=4, flops_per_d=10)
     nbytes += lse.numel() * lse.element_size()
     by_bytes = _bound_ms(nbytes)
     by_ops = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(by_bytes, by_ops)
     lq, lk, lv = (t.requires_grad_() for t in _sdpa_inputs(q, k, v))
-    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
     ldo = dout.reshape(B, K * G, S, d)
     library = lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo,
                                           retain_graph=True)
@@ -4445,20 +4569,20 @@ def flash_bwd_row(shape, launches, device) -> dict:
            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
            "bound_share": bound_ms / device_ms,
            "bound_bytes": nbytes, "bound_flops": flops,
-           "shape": f"train {B}x{S}: q {tuple(q.shape)} k {tuple(k.shape)} "
-                    f"bf16 causal"}
+           "shape": f"{label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 "
+                    f"{'causal' if causal else 'non-causal'}"}
     _say_row(row, bound_by=row["bound_by"],
              bound_share=_fmt(row["bound_share"]),
-             max_abs_err=f"{err:.3g}", shape=f"{B}x{S}",
+             max_abs_err=f"{err:.3g}", shape=label.replace(" ", "_"),
              max_abs_err_dq_dk_dv=json.dumps([float(f"{e:.3g}")
                                               for e in errs]),
              limits=json.dumps([float(f"{x:.3g}") for x in limits]))
     if any(e > lim for e, lim in zip(errs, limits)):
-        raise AssertionError(f"flash_attention_bwd {B}x{S}: errors {errs} "
+        raise AssertionError(f"flash_attention_bwd {label}: errors {errs} "
                              f"against the plain backward (limits "
                              f"{limits})")
     if device_ms < bound_ms:
-        raise AssertionError(f"flash_attention_bwd {B}x{S}: device "
+        raise AssertionError(f"flash_attention_bwd {label}: device "
                              f"{device_ms} ms below its bound {bound_ms}")
     return row
 
@@ -4479,17 +4603,16 @@ def _plain_attention():
     return undo
 
 
-def _attn_grad_leaves(model, params, grads) -> dict:
-    """Copies of the wq, wk and wv gradients of the first and last layer,
-    by name, from ``loss_and_grads``' per-layer gradients."""
-    from repro_torch.models.transformer import segments
+def _grad_leaves(model, params, grads, picks) -> dict:
+    """Copies of gradient leaves by name, from ``loss_and_grads``'
+    per-layer gradients: ``picks`` holds (stacked entry, layer, block
+    part, leaf) tuples."""
     from repro_torch.train.train_step import split_layers
     from repro_torch.train.tree import tree_flatten, tree_unflatten
     _, treedef = tree_flatten(split_layers(model, params))
-    layers = next(tree_unflatten(treedef, grads)[seg.name]
-                  for seg in segments(model.cfg) if seg.scanned)
-    return {f"layer{i}.{w}": layers[i]["attn"][w].detach().clone()
-            for i in (0, len(layers) - 1) for w in ("wq", "wk", "wv")}
+    tree = tree_unflatten(treedef, grads)
+    return {f"{entry}{i}.{part}.{w}": tree[entry][i][part][w].detach()
+            .clone() for entry, i, part, w in picks}
 
 
 def _leaf_gaps(got: dict, want: dict) -> dict:
@@ -4498,24 +4621,78 @@ def _leaf_gaps(got: dict, want: dict) -> dict:
             for n in want}
 
 
-def train_full_width(device) -> dict:
-    """Phase 11c: qwen3-4b at full width and depth, f32 master weights,
-    bf16 compute, remat "minimal", 4 x 512 tokens a step from a token
-    store pinned at its data epoch.  Returns the launches of one step."""
+class TrainFlashRoles:
+    """Counts a training step's flash kernel calls by role and direction:
+    it wraps ``flash_attention`` and ``flash_attention_bwd`` in
+    ``kernels.flash_attention``, which ``flash_attention_train``'s
+    autograd function looks up at call time.  A forward call's role is
+    "encoder" where an enc-dec model's ``encode`` is on the call stack
+    (its pass and its remat recompute in the backward, which runs the
+    encoder block's function again), else "self" (causal) or "cross"; a
+    backward call takes the role of the forward that made its q.  With
+    ``keep``, the first backward call of each role keeps its inputs."""
+
+    def __init__(self, keep: bool = False):
+        self.counts = {}          # (role, "forward" | "backward") -> calls
+        self.kept = {}            # role -> the first backward's inputs
+        self.keep = keep
+        self._roles = {}          # q's data pointer -> role
+
+    @staticmethod
+    def _role(causal: bool) -> str:
+        f = sys._getframe(2)
+        while f is not None:
+            if f.f_code.co_qualname.startswith("EncDecModel.encode"):
+                return "encoder"
+            f = f.f_back
+        return "self" if causal else "cross"
+
+    def _count(self, role, way):
+        self.counts[(role, way)] = self.counts.get((role, way), 0) + 1
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self._saved = fwd, bwd = fa.flash_attention, fa.flash_attention_bwd
+
+        def forward(q, k, v, *, causal=True, **kw):
+            role = self._role(causal)
+            self._roles[q.data_ptr()] = role
+            self._count(role, "forward")
+            return fwd(q, k, v, causal=causal, **kw)
+
+        def backward(q, k, v, out, dout, lse, *, causal=True):
+            role = self._roles.get(q.data_ptr(), "unknown")
+            self._count(role, "backward")
+            if self.keep and role not in self.kept:
+                self.kept[role] = (*(t.detach() for t in (
+                    q, k, v, out, dout, lse)), causal)
+            return bwd(q, k, v, out, dout, lse, causal=causal)
+        fa.flash_attention, fa.flash_attention_bwd = forward, backward
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        fa.flash_attention, fa.flash_attention_bwd = self._saved
+
+
+def _train_setup(arch, device):
+    """``arch`` at full width and depth for training: f32 master weights
+    from seed 0 (every ``cross/gate`` opened to 1.0 where there are
+    cross layers), remat "minimal", and ``TRAIN_STEPS + 2`` batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from a token store pinned at
+    its data epoch (with seeded bf16 memories for a model with cross
+    layers: frames as long as the tokens, or the image embeddings)."""
     import torch
     from repro_torch import configs
-    from repro_torch.configs.base import RunConfig
     from repro_torch.data import TokenStore, token_corpus
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    from repro_torch.train.optim import global_norm
-    from repro_torch.train.train_step import (init_train_state,
-                                              loss_and_grads,
-                                              make_train_step)
-    cfg = configs.get(LM_ARCH)
+    from repro_torch.train.train_step import init_train_state
+    cfg = configs.get(arch)
     model = build_model(cfg, tp=1, remat="minimal", device=device)
     t0 = time.perf_counter()
     state = init_train_state(model, seed=0)
+    if model.memory_key is not None:
+        _open_gates(state["params"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     store = TokenStore.create(n_nodes=4, device=device)
@@ -4525,17 +4702,47 @@ def train_full_width(device) -> dict:
     batches = [{k: torch.as_tensor(x, device=device)
                 for k, x in next(stream).items()}
                for _ in range(TRAIN_STEPS + 2)]
+    if model.memory_key is not None:
+        shape = (TRAIN_BATCH, TRAIN_SEQ)
+        for i, b in enumerate(batches):
+            b[model.memory_key] = next(iter(_memories(
+                model, (shape + (0,),), device, seed=20 + i).values()))
     st = store.storage_stats()
     _say("train", arch=cfg.name, params=model.n_params, remat=model.remat,
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=f"{init_s:.2f}",
          corpus_tokens=st["rows"], data_epoch=epoch,
-         compression=f"{st['ratio']:.2f}")
+         compression=f"{st['ratio']:.2f}",
+         memory=json.dumps(list(batches[0][model.memory_key].shape))
+         if model.memory_key else "none")
+    return cfg, model, state, batches
+
+
+def train_path(arch, device, picks, want_roles, keep=False):
+    """Phases 11c and 11e: ``arch`` trained at full width and depth
+    (``_train_setup``).  One step's loss, global grad norm and the
+    gradient leaves ``picks`` (``_grad_leaves``) through the kernels and
+    through the plain versions: loss within ``TRAIN_LOSS_TOL``, norm
+    within ``TRAIN_GNORM_RTOL``, each leaf within ``TRAIN_LEAF_RTOL`` and
+    non-zero.  The kernel step's flash calls by role and direction
+    (``TrainFlashRoles``, counters zeroed just before and read just
+    after) must be ``want_roles``; the launches, 1 a forward call and 2 a
+    backward call, and no other kernel.  Then ``TRAIN_STEPS`` AdamW steps
+    (each loss finite, the same launches), one profiled step and the
+    dry-run beside it.  Returns the launches of one step and, with
+    ``keep``, the first backward call's inputs of each role."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    cfg, model, state, batches = _train_setup(arch, device)
 
     # ---- one step's loss and grad norm, kernels then plain versions
     ops.reset_launch_counts()
-    loss_k, grads = loss_and_grads(model, state["params"], batches[0])
+    with TrainFlashRoles(keep) as roles:
+        loss_k, grads = loss_and_grads(model, state["params"], batches[0])
     gnorm_k = float(global_norm(grads))
-    leaves_k = _attn_grad_leaves(model, state["params"], grads)
+    leaves_k = _grad_leaves(model, state["params"], grads, picks)
     torch.cuda.synchronize()
     per_step = ops.launch_counts()
     del grads
@@ -4543,37 +4750,48 @@ def train_full_width(device) -> dict:
     try:
         loss_p, grads = loss_and_grads(model, state["params"], batches[0])
         gnorm_p = float(global_norm(grads))
-        leaves_p = _attn_grad_leaves(model, state["params"], grads)
+        leaves_p = _grad_leaves(model, state["params"], grads, picks)
     finally:
         undo()
     del grads
     loss_k, loss_p = float(loss_k), float(loss_p)
     gaps = _leaf_gaps(leaves_k, leaves_p)
+    norms = {n: float(t.norm()) for n, t in leaves_k.items()}
     del leaves_k, leaves_p
-    _say("check", train="kernels_vs_plain", loss_kernels=f"{loss_k:.6f}",
+    _say("check", train="kernels_vs_plain", arch=cfg.name,
+         loss_kernels=f"{loss_k:.6f}",
          loss_plain=f"{loss_p:.6f}", loss_tol=TRAIN_LOSS_TOL,
          grad_norm_kernels=f"{gnorm_k:.6f}",
          grad_norm_plain=f"{gnorm_p:.6f}", grad_norm_rtol=TRAIN_GNORM_RTOL,
          leaf_rel_gaps=json.dumps({n: float(f"{x:.3g}")
                                    for n, x in gaps.items()},
                                   separators=(",", ":")),
+         leaf_norms=json.dumps({n: float(f"{x:.4g}")
+                                for n, x in norms.items()},
+                               separators=(",", ":")),
          leaf_rtol=TRAIN_LEAF_RTOL)
     if not (np.isfinite([loss_k, loss_p, gnorm_k, gnorm_p,
                          *gaps.values()]).all()
             and abs(loss_k - loss_p) <= TRAIN_LOSS_TOL
             and abs(gnorm_k - gnorm_p) <= TRAIN_GNORM_RTOL * gnorm_p
-            and max(gaps.values()) <= TRAIN_LEAF_RTOL):
-        raise AssertionError(f"training step, kernels vs plain: loss "
-                             f"{loss_k} / {loss_p}, grad norm {gnorm_k} / "
-                             f"{gnorm_p}, leaf gaps {gaps}")
-    # remat "minimal": each layer's forward runs twice (the pass and the
-    # recompute in the backward), its backward once (two launches)
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": 2 * cfg.n_layers}
+            and max(gaps.values()) <= TRAIN_LEAF_RTOL
+            and min(norms.values()) > 0):
+        raise AssertionError(f"training step {cfg.name}, kernels vs plain: "
+                             f"loss {loss_k} / {loss_p}, grad norm "
+                             f"{gnorm_k} / {gnorm_p}, leaf gaps {gaps}, "
+                             f"leaf norms {norms}")
+    got_roles = {f"{r}_{w}": n for (r, w), n in sorted(roles.counts.items())}
+    want = {"flash_attention": sum(n for (_, w), n in want_roles.items()
+                                   if w == "forward"),
+            "flash_attention_bwd": 2 * sum(
+                n for (_, w), n in want_roles.items() if w == "backward")}
     got = {k: n for k, n in per_step.items() if n}
-    if got != want:
-        raise AssertionError(f"launches of one training step {got}, "
-                             f"expected {want}")
+    _say("launches", path="train_step", arch=cfg.name,
+         roles=json.dumps(got_roles, separators=(",", ":")), **got)
+    if roles.counts != want_roles or got != want:
+        raise AssertionError(f"launches of one training step of {cfg.name}:"
+                             f" {got}, flash calls by role {roles.counts}; "
+                             f"expected {want}, {want_roles}")
 
     # ---- AdamW steps
     rc = RunConfig(total_steps=100, warmup_steps=2)
@@ -4589,14 +4807,16 @@ def train_full_width(device) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         got = {k: n for k, n in ops.launch_counts().items() if n}
-        _say("train", step=i + 1, loss=f"{loss:.6f}",
+        _say("train", arch=cfg.name, step=i + 1, loss=f"{loss:.6f}",
              grad_norm=f"{float(met['grad_norm']):.6f}",
              lr=f"{float(met['lr']):.3e}", step_ms=f"{times[-1] * 1e3:.3f}",
              tok_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / times[-1]:.1f}",
+             max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
              launches=json.dumps(got, separators=(",", ":")))
         if not np.isfinite(loss) or got != want:
-            raise AssertionError(f"training step {i + 1}: loss {loss}, "
-                                 f"launches {got} (expected {want})")
+            raise AssertionError(f"training step {i + 1} of {cfg.name}: "
+                                 f"loss {loss}, launches {got} (expected "
+                                 f"{want})")
     peak = torch.cuda.max_memory_allocated()
     # ---- one profiled step (after an untraced one): its device kernels
     # against the steady steps' host time
@@ -4627,8 +4847,52 @@ def train_full_width(device) -> dict:
          flash_bwd_share=f"{bwd_ms / dev_ms:.4f}", kernels=len(kern),
          top=json.dumps({k.replace(" ", "_")[:72]: round(kern[k] / 1e3, 3)
                          for k in top}, separators=(",", ":")))
-    _say("launches", path="train", **want)
+    dryrun_beside(model, "train", TRAIN_BATCH, TRAIN_SEQ, dev_ms, cfg.name,
+                  state["params"], state=state, peak=peak)
+    _say("launches", path="train", arch=cfg.name, **want)
+    return want, roles.kept
+
+
+def train_full_width(device) -> dict:
+    """Phase 11c: qwen3-4b (``train_path``), the wq, wk and wv gradients
+    of its first and last layer; remat "minimal": each layer's forward
+    runs twice (the pass and the recompute in the backward), its
+    backward once."""
+    from repro_torch import configs
+    n = configs.get(LM_ARCH).n_layers
+    picks = [("layers", i, "attn", w) for i in (0, n - 1)
+             for w in ("wq", "wk", "wv")]
+    want, _ = train_path(LM_ARCH, device, picks,
+                         {("self", "forward"): 2 * n,
+                          ("self", "backward"): n})
     return want
+
+
+def train_seamless(device) -> list:
+    """Phase 11e: seamless-m4t-medium trained at full width and depth
+    (``train_path``) with its cross gates open, over seeded bf16 frames as
+    long as the tokens: the wq, wk and wv gradients of encoder layers 0
+    and 11 and of decoder layer 0's cross branch; flash calls by role, the
+    12 encoder, 12 self and 12 cross layers each forward twice (remat)
+    and backward once.  Returns the ``flash_attention_bwd`` JSON rows of
+    an encoder layer and a cross layer, on the inputs the step gave
+    their first backward calls."""
+    from repro_torch import configs
+    cfg = configs.get(ENCDEC_ARCH)
+    picks = [("encoder", i, "attn", w) for i in (0, cfg.n_encoder_layers - 1)
+             for w in ("wq", "wk", "wv")]
+    picks += [("layers", 0, "cross", w) for w in ("wq", "wk", "wv")]
+    n = {"encoder": cfg.n_encoder_layers, "self": cfg.n_layers,
+         "cross": cfg.n_layers}
+    want_roles = {(r, w): k * m for r, m in n.items()
+                  for w, k in (("forward", 2), ("backward", 1))}
+    want, kept = train_path(ENCDEC_ARCH, device, picks, want_roles,
+                            keep=True)
+    rows = [flash_bwd_row(*kept[role], launches=2 * n[role],
+                          label=f"{cfg.name} train {TRAIN_BATCH}x"
+                                f"{TRAIN_SEQ} {role}")
+            for role in ("encoder", "cross")]
+    return rows
 
 
 def driver_replay(device) -> None:
@@ -4697,12 +4961,20 @@ def train_phase(device):
     per_step = train_full_width(device)
     gc.collect()
     torch.cuda.empty_cache()
-    rows = [flash_bwd_row(shape, per_step["flash_attention_bwd"], device)
+    rows = [flash_bwd_row(*_qwen_bwd_inputs(shape, device), True,
+                          per_step["flash_attention_bwd"],
+                          f"train {shape[0]}x{shape[1]}")
             for shape in ((LM_SERVE[0], LM_SERVE[1]),
                           (LM_LONG[0], LM_LONG[1]))]
     gc.collect()
     torch.cuda.empty_cache()
     driver_replay(device)
+    t0 = time.perf_counter()
+    rows += train_seamless(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say("train", arch=ENCDEC_ARCH,
+         seconds=f"{time.perf_counter() - t0:.1f}")
     return rows
 
 

@@ -1,4 +1,5 @@
-from .synth import star_schema, token_corpus, zipf_tokens
+from .synth import meter_data, star_schema, token_corpus, zipf_tokens
 from .tokenstore import TokenStore
 
-__all__ = ["TokenStore", "star_schema", "token_corpus", "zipf_tokens"]
+__all__ = ["TokenStore", "meter_data", "star_schema", "token_corpus",
+           "zipf_tokens"]

@@ -14,6 +14,16 @@ f32, and one cast to q's dtype at the end.
   scalar FMAs (tensor cores would round it to TF32).
 * ``flash_attention_plain`` -- the same function in plain PyTorch.
 
+On meta tensors (the dry-run, launch/dryrun.py) neither version can
+run, and the plain version's ``(..., S, T)`` f32 scores, which the kernel
+never writes, would make the counted bytes of a prefill or training step
+wrong by orders of magnitude.  So a meta tensor takes a route that only
+counts: the custom op ``repro_torch::flash_attention_meta`` returns meta
+outputs of the kernel's shapes, reads q, k, v and writes out (and lse)
+once in the byte count of launch/op_cost.py, and carries the kernel's
+flops (``flash_work``) as its ``FlopCounterMode`` formula.  It launches
+nothing and counts no launch.
+
 With ``return_lse=True`` both also return each row's logsumexp of its
 scaled, masked scores (f32, q's shape without the head dim): the
 kernels store it from the registers that hold the row's max and sum, for
@@ -46,14 +56,22 @@ differentiates):
   through ``flash_attention`` (saving its lse), backward through
   ``flash_attention_bwd``.  Both are looked up in this module at call
   time.
+
+The backward's meta route is ``repro_torch::flash_attention_bwd_meta``:
+dq, dk, dv of q's, k's and v's shapes, q, k, v, out, dout and lse read
+and the three gradients written once, 10 d flops per unmasked pair.
+
+``flash_work`` is the one formula of both directions' work, which the
+meta routes and ``chip_smoke.py``'s bounds share.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
@@ -83,6 +101,76 @@ LEAD_DIMS = 3           # leading dims the kernel indexes, after merging
 BOX_COLS = 64           # a TMA box: 64 columns (128 bytes of bf16) ...
 BOX_ROWS = 128          # ... by 128 rows (the kernel's q and kv tiles)
 LSE_ROWS = 64           # the backward's lse and D scratch: rows rounded up
+
+
+def _pairs(S: int, T: int, causal: bool) -> int:
+    """Unmasked (query, key) pairs of one head: query i sees keys
+    0..min(i, T - 1) under the causal top-left mask, all T without it."""
+    if not causal:
+        return S * T
+    n = min(S, T)
+    return n * (n + 1) // 2 + (S - n) * T
+
+
+def flash_work(q_shape: Sequence[int], k_shape: Sequence[int],
+               causal: bool, itemsize: int, tensors: int = 2,
+               flops_per_d: int = 4) -> Tuple[int, int]:
+    """(bytes, flops) of one attention call on q ``(..., S, d)`` and k
+    ``(..., T, d)`` (k unexpanded) of ``itemsize``-byte elements:
+    ``tensors`` q-shaped and as many k-shaped tensors each read or
+    written once, and ``flops_per_d`` d flops per unmasked (query, key)
+    pair.  The forward: q, out; k, v; 2 d for q.k and 2 d for P.V
+    (``tensors=2, flops_per_d=4``).  The backward: q, out, dout, dq; k, v,
+    dk, dv; the five products of the gradient (``tensors=4,
+    flops_per_d=10``).  The f32 lse (the forward's output with
+    ``return_lse``, the backward's input) is not in it."""
+    *lead, S, d = q_shape
+    T = k_shape[-2]
+    n_q, n_k = math.prod(lead), math.prod(k_shape[:-2])
+    nbytes = tensors * (n_q * S + n_k * T) * d * itemsize
+    return nbytes, flops_per_d * d * _pairs(S, T, causal) * n_q
+
+
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, return_lse: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("flash_attention's meta route counts work on meta "
+                       "tensors only")
+
+
+@_flash_meta.register_fake
+def _(q, k, v, causal, return_lse):
+    lse = q.shape[:-1] if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
+def _flash_meta_flops(q_shape, k_shape, v_shape, causal, return_lse, *a,
+                      **kw) -> int:
+    return flash_work(q_shape, k_shape, causal, 1)[1]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_meta",
+                         mutates_args=())
+def _flash_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor,
+                    lse: torch.Tensor, causal: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("flash_attention_bwd's meta route counts work on "
+                       "meta tensors only")
+
+
+@_flash_bwd_meta.register_fake
+def _(q, k, v, out, dout, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_meta)
+def _flash_bwd_meta_flops(q_shape, k_shape, v_shape, o_shape, do_shape,
+                          lse_shape, causal, *a, **kw) -> int:
+    return flash_work(q_shape, k_shape, causal, 1, flops_per_d=10)[1]
 
 
 def _masked_scores(q, k, causal: bool) -> torch.Tensor:
@@ -240,7 +328,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``(..., S, d)``, k/v ``(..., T, d)`` -> ``(..., S, d)`` in q's
     dtype, and with ``return_lse`` each row's logsumexp ``(..., S)`` in
     f32.  A CUDA tensor launches the kernel (or raises); a CPU tensor
-    takes the plain version.  ``bq`` and ``bk`` are the reference's tile
+    takes the plain version; a meta tensor the meta route (outputs of
+    the kernel's shapes, its work counted, nothing launched).  ``bq`` and
+    ``bk`` are the reference's tile
     sizes, kept for its signature: the Hopper kernels' tiles are fixed by
     their design (bf16: 128 queries by 128 keys; f32: 64 by 32), and the
     result does not depend on them."""
@@ -259,6 +349,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk}")
     if q.is_cuda:
         return _launch(q, k, v, causal, return_lse)
+    if q.is_meta:
+        out, lse = _flash_meta(q, k, v, causal, return_lse)
+        return (out, lse) if return_lse else out
     return flash_attention_plain(q, k, v, causal=causal,
                                  return_lse=return_lse)
 
@@ -383,7 +476,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     ``(..., S)`` f32; k, v ``(..., T, d)``, broadcast over q's leading
     dims (dk and dv come back with k's and v's shapes, summed over the
     dims they broadcast over).  A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes the plain version."""
+    raises); a CPU tensor takes the plain version; a meta tensor the meta
+    route."""
     if q.shape != out.shape or q.shape != dout.shape or k.shape != v.shape \
             or k.dim() != q.dim() or k.shape[-1] != q.shape[-1] \
             or lse.shape != q.shape[:-1]:
@@ -399,6 +493,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                          f"{tuple(q.shape[:-2])}")
     if q.is_cuda:
         return _launch_bwd(q, k, v, out, dout, lse, causal)
+    if q.is_meta:
+        return _flash_bwd_meta(q, k, v, out, dout, lse, causal)
     return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)
 
 

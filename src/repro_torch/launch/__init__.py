@@ -1,3 +1,5 @@
-"""Launchers of the port: ``serve`` (batched prefill + greedy decode).
-Mirrors ``src/repro/launch/``; the trainer, dry-run and roofline wait for
-their slices."""
+"""Launchers of the port: ``serve`` (batched prefill + greedy decode),
+``train`` (the training driver) and ``dryrun`` (each cell's step counted
+on meta tensors: ``op_cost``, with the H100 roofline of
+``roofline_math``; ``mesh``: the reference's mesh shapes).  Mirrors
+``src/repro/launch/``, with ``op_cost`` in place of ``hlo_cost``."""

@@ -2,7 +2,8 @@
 enc-dec and VLM): parameter declarations, layers, attention, the
 decoder and ``build_model``.
 Mirrors ``src/repro/models/``."""
-from .model import Model, build_model
-from .params import count_params, init_params
+from .model import Model, build_model, cache_partition_axes
+from .params import abstract_params, count_params, init_params
 
-__all__ = ["Model", "build_model", "count_params", "init_params"]
+__all__ = ["Model", "abstract_params", "build_model",
+           "cache_partition_axes", "count_params", "init_params"]

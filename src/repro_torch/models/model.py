@@ -3,16 +3,18 @@ serving paths.
 
 A Model bundles, for every family:
   decls          -- parameter declarations (shapes + logical axes)
-  loss           -- (params, batch) -> scalar   [train; decoder-only
-                    families]
+  loss           -- (params, batch) -> scalar   [train]
   prefill        -- (params, batch, max_len) -> (last_logits, cache)
   decode_step    -- (params, cache, tokens, pos) -> (logits, cache)
   cache_decls    -- (batch, max_len) -> tree of (shape, axes, dtype)
                     (enc-dec: (batch, max_len, enc_len=None))
+  input_specs    -- ShapeConfig -> kwargs tree of meta tensors
+                    (the dry-run stand-ins; no allocation)
 
 Mirrors ``src/repro/models/model.py`` (``Model``, ``_attn_cache``,
 ``_ssm_cache``, ``_block_cache``, ``_stack_cache``, ``_positions``,
-``_build_decoder_only``, ``_build_encdec`` and ``_build_vlm``).
+``_build_decoder_only``, ``_build_encdec``, ``_build_vlm`` and
+``cache_partition_axes``).
 ``Model`` is a ``torch.nn.Module`` on one explicit device: ``init_params``
 draws a parameter tree there and ``load_params`` checks one against the
 declarations and the device; the caller keeps the tree, and ``prefill``
@@ -21,13 +23,14 @@ do.  The reference's three builders are one class per family group:
 ``Model`` (decoder-only: dense, MoE, SSM, hybrid) and its subclasses
 ``EncDecModel`` (audio: seamless) and ``VLMModel`` (vlm:
 llama-3.2-vision), which override its hooks: ``_decls``, ``_memory``
-(the cross-attention memory a prefill's batch carries: the encoder's
-output of ``batch["frames"]``, or ``batch["image_embeds"]`` as given),
-``_run`` (the decoder stack), ``cache_decls`` and ``loss``.  ``loss``
-takes f32 master weights (bf16 compute), runs the decoder in train mode
-under the model's remat policy and adds the MoE blocks' load-balance
-loss, as the reference's does; the enc-dec and VLM families serve only,
-and their ``loss`` raises.  ``kv_quant=True`` gives the int8 KV cache
+(the cross-attention memory a batch carries: the encoder's output of
+``batch["frames"]``, or ``batch["image_embeds"]`` as given),
+``_memory_shape`` (its shape, for ``input_specs``), ``_run`` (the
+decoder stack), ``stacked`` (which parameter entries are stacked layers)
+and ``cache_decls``.  ``loss`` takes f32 master weights (bf16 compute),
+runs the decoder (and an enc-dec model's encoder) in train mode under the
+model's remat policy and adds the MoE blocks' load-balance loss, as the
+reference's does.  ``kv_quant=True`` gives the int8 KV cache
 (decoder-only families): each layer's entry is ``{"k": {"q": int8, "s":
 f32}, "v": {...}}``, the reference's layout, so a reference cache
 carries across (``carry.cache_from_numpy``).  An SSM or hybrid block's
@@ -40,26 +43,28 @@ bf16 k and v, as long as the memory (seamless: the frames, declared at
 ``n_frontend_tokens``); decode reads it and never writes it.  The VLM
 stacks its self layers twice, (groups, self layers per group, ...), in
 its parameters and its cache, and its cross layers once; a cross layer
-has no ``ln1`` / ``attn``, so it runs no self-attention.  The dry-run's
-``input_specs`` waits for its slice.
+has no ``ln1`` / ``attn``, so it runs no self-attention.  A model built
+on ``device="meta"`` allocates nothing: the dry-run runs it on
+``input_specs`` and ``params.abstract_params`` to count its work.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from . import attention as attn
 from . import ssm as ssm_mod
 from .layers import (embed_lookup, logits_fn, rmsnorm, rmsnorm_decl,
                      softmax_xent)
 from .params import (Decls, ParamDecl, count_params, init_params,
                      resolve_device)
-from .transformer import (CACHE_DTYPE, _layer, _stack, _stack_decls,
-                          block_apply, block_decls, decoder_decls,
-                          run_decoder, segments)
+from .transformer import (CACHE_DTYPE, _layer, _remat, _stack,
+                          _stack_decls, block_apply, block_decls,
+                          decoder_decls, run_decoder, segments)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -123,6 +128,14 @@ def _positions(B, S, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def meta_cache(decls):
+    """A cache declaration tree (``cache_decls``) as meta tensors of its
+    shapes and dtypes: no memory."""
+    if _is_cache_leaf(decls):
+        return torch.empty(decls[0], dtype=decls[2], device="meta")
+    return {k: meta_cache(v) for k, v in decls.items()}
+
+
 # ---------------------------------------------------------------------------
 # Decoder-only family
 # ---------------------------------------------------------------------------
@@ -130,8 +143,8 @@ def _positions(B, S, device):
 class Model(torch.nn.Module):
     """The decoder-only LM on ``device``: its declarations, and the
     functions that run a parameter tree held on that device.  The enc-dec
-    and VLM subclasses override ``_decls``, ``_memory``, ``_run``,
-    ``cache_decls`` and ``loss``."""
+    and VLM subclasses override ``_decls``, ``_memory``,
+    ``_memory_shape``, ``_run``, ``stacked`` and ``cache_decls``."""
 
     memory_key: Optional[str] = None   # the batch entry of the memory
 
@@ -177,41 +190,77 @@ class Model(torch.nn.Module):
         check(self.decls, tree, "")
         return tree
 
+    def stacked(self) -> Dict[str, int]:
+        """The parameter entries that stack layers, each with its number
+        of stacked levels (the VLM's self layers have two)."""
+        return {seg.name: 1 for seg in segments(self.cfg) if seg.scanned}
+
     def loss(self, params, batch):
-        """Mean next-token cross entropy of ``batch`` (tokens, labels).  A
-        stacked segment of ``params`` may be a list of per-layer trees
-        (transformer.run_decoder)."""
+        """Mean next-token cross entropy of ``batch`` (tokens, labels, and
+        the memory of a model with cross layers).  A stacked entry of
+        ``params`` (``stacked``) may be a list of per-layer trees."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
+        memory = self._memory(params, batch, mode="train")
         x = embed_lookup(params, tokens, CACHE_DTYPE)
-        x, _, aux = run_decoder(cfg, self.tp, params, x, mode="train",
-                                positions=_positions(B, S, x.device),
-                                remat_policy=self.remat)
+        x, _, aux = self._run(params, x, mode="train",
+                              positions=_positions(B, S, x.device),
+                              memory=memory)
         x = rmsnorm(params["ln_f"], x)
         logits = logits_fn(params, x, cfg.vocab_size, cfg.tie_embeddings)
         return softmax_xent(logits, labels) + aux
 
-    def _memory(self, params, batch) -> Optional[torch.Tensor]:
-        """The cross-attention memory of a prefill's ``batch``: its
-        ``memory_key`` entry (None for a decoder-only model)."""
+    def _memory(self, params, batch, mode: str) -> Optional[torch.Tensor]:
+        """The cross-attention memory of ``batch`` for a pass in ``mode``:
+        its ``memory_key`` entry (None for a decoder-only model)."""
         if self.memory_key is None:
             return None
         if self.memory_key not in batch:
-            raise ValueError(f"{self.cfg.name}: prefill needs "
+            raise ValueError(f"{self.cfg.name}: {mode} needs "
                              f"batch[{self.memory_key!r}]")
         return batch[self.memory_key]
+
+    def _memory_shape(self, batch: int, seq: int, memory_len=None):
+        """The shape of the memory a batch of ``batch`` x ``seq`` tokens
+        carries (None for a decoder-only model)."""
+        return None
 
     def _run(self, params, x, **kw):
         """The decoder stack; returns (x, caches, aux)."""
         return run_decoder(self.cfg, self.tp, params, x,
-                           kv_quant=self.kv_quant, **kw)
+                           kv_quant=self.kv_quant, remat_policy=self.remat,
+                           **kw)
+
+    def input_specs(self, shape: ShapeConfig,
+                    memory_len: Optional[int] = None) -> Dict[str, Any]:
+        """Meta tensors of one step's inputs at ``shape``, the reference's
+        shapes and types: int32 tokens (and labels), a model's bf16
+        memory; for decode a meta cache of ``seq_len`` slots, (B, 1)
+        tokens and a 0-d int32 ``pos``.  ``memory_len``: an enc-dec
+        model's frames' length (its cross cache's; the reference's is
+        ``seq_len``)."""
+        B, S = shape.global_batch, shape.seq_len
+        meta = partial(torch.empty, device="meta")
+        tok = meta((B, S), dtype=torch.int32)
+        mem = self._memory_shape(B, S, memory_len)
+        extra = {} if mem is None else \
+            {self.memory_key: meta(mem, dtype=torch.bfloat16)}
+        if shape.kind == "train":
+            return {"batch": {"tokens": tok, "labels": meta(
+                (B, S), dtype=torch.int32), **extra}}
+        if shape.kind == "prefill":
+            return {"batch": {"tokens": tok, **extra}}
+        kw = {} if memory_len is None else {"enc_len": memory_len}
+        return {"cache": meta_cache(self.cache_decls(B, S, **kw)),
+                "tokens": meta((B, 1), dtype=torch.int32),
+                "pos": meta((), dtype=torch.int32)}
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        memory = self._memory(params, batch)
+        memory = self._memory(params, batch, mode="prefill")
         x = embed_lookup(params, tokens, CACHE_DTYPE)
         x, caches, _ = self._run(params, x, mode="prefill",
                                  positions=_positions(B, S, x.device),
@@ -246,12 +295,6 @@ class Model(torch.nn.Module):
         return out
 
 
-def _serving_only(model):
-    return NotImplementedError(f"{model.cfg.name}: training the "
-                               f"{model.cfg.family} family is not ported "
-                               f"yet (its serving path is)")
-
-
 # ---------------------------------------------------------------------------
 # Enc-dec family (seamless: audio frontend stub -> encoder -> decoder)
 # ---------------------------------------------------------------------------
@@ -274,28 +317,36 @@ class EncDecModel(Model):
         decls["ln_enc"] = rmsnorm_decl(d)
         return decls
 
-    def encode(self, params, frames):
-        """frames (B, T, d) -> the encoder's output (B, T, d), bf16.  The
-        reference runs the encoder blocks in train mode (no cache); here
-        they run in prefill mode without ``max_len``, whose cache is each
-        layer's k and v themselves (no copy, dropped), so their
-        bidirectional self-attention launches the forward flash kernel
-        with ``causal=False`` (train mode is the autograd route)."""
+    def stacked(self) -> Dict[str, int]:
+        return {**super().stacked(), "encoder": 1}
+
+    def encode(self, params, frames, mode: str = "prefill"):
+        """frames (B, T, d) -> the encoder's output (B, T, d), bf16: the
+        encoder blocks' bidirectional self-attention through the flash
+        kernel with ``causal=False``.  In train mode (the loss) each block
+        runs under the model's remat policy, as the reference's
+        ``jax.checkpoint(body)``, and its attention takes the autograd
+        route (``flash_train``); in prefill mode (serving; the reference
+        runs train mode there too) a block runs without ``max_len``,
+        whose cache is its k and v themselves (no copy, dropped), so it
+        launches the forward kernel alone."""
         B, T, _ = frames.shape
         x = frames.to(CACHE_DTYPE) @ params["frontend_proj"].to(CACHE_DTYPE)
-        positions = _positions(B, T, x.device)
+        fn = partial(block_apply, self.cfg, self.tp, mode=mode, window=None,
+                     positions=_positions(B, T, x.device), causal=False)
+        body = lambda p, h: fn(p, h)[0]
+        if mode == "train":
+            body = _remat(body, self.remat)
         for i in range(self.cfg.n_encoder_layers):
-            x, _, _ = block_apply(self.cfg, self.tp,
-                                  _layer(params["encoder"], i), x,
-                                  mode="prefill", window=None,
-                                  positions=positions, causal=False)
+            x = body(_layer(params["encoder"], i), x)
         return rmsnorm(params["ln_enc"], x)
 
-    def _memory(self, params, batch):
-        return self.encode(params, super()._memory(params, batch))
+    def _memory(self, params, batch, mode):
+        return self.encode(params, super()._memory(params, batch, mode),
+                           mode)
 
-    def loss(self, params, batch):
-        raise _serving_only(self)
+    def _memory_shape(self, batch, seq, memory_len=None):
+        return (batch, memory_len or seq, self.cfg.d_model)
 
     def cache_decls(self, batch, max_len, enc_len=None):
         """``enc_len``: the frames' length, which the cross cache holds
@@ -337,11 +388,22 @@ class VLMModel(Model):
         decls["groups_cross"] = _stack_decls(cross_block, self.n_groups)
         return decls
 
+    def stacked(self) -> Dict[str, int]:
+        return {"groups_self": 2, "groups_cross": 1}
+
+    def _memory_shape(self, batch, seq, memory_len=None):
+        return (batch, self.cfg.n_frontend_tokens, self.cfg.d_model)
+
     def _run(self, params, x, *, mode, positions, caches=None, pos=None,
              memory=None, max_len=None):
         """Group by group: its self layers (a view of level 2 of the
         doubly stacked trees), then its cross layer.  Decode writes the
-        self caches in place and hands ``caches`` back."""
+        self caches in place and hands ``caches`` back; train runs each
+        group under the model's remat policy, as the reference checkpoints
+        its group body, and returns no caches."""
+        if mode == "train":
+            return self._train_groups(params, x, positions, memory), \
+                None, 0.0
         caches = caches or {}
         c_self, c_cross = caches.get("groups_self"), \
             caches.get("groups_cross")
@@ -368,8 +430,20 @@ class VLMModel(Model):
         return x, {"groups_self": _stack([_stack(o) for o in self_out]),
                    "groups_cross": _stack(cross_out)}, 0.0
 
-    def loss(self, params, batch):
-        raise _serving_only(self)
+    def _train_groups(self, params, x, positions, memory):
+        kw = dict(mode="train", window=None, positions=positions)
+
+        def group(p_self, p_cross, h):
+            for i in range(self.n_self):
+                h = block_apply(self.cfg, self.tp, _layer(p_self, i), h,
+                                **kw)[0]
+            return block_apply(self.cfg, self.tp, p_cross, h,
+                               memory=memory, **kw)[0]
+        body = _remat(group, self.remat)
+        for g in range(self.n_groups):
+            x = body(_layer(params["groups_self"], g),
+                     _layer(params["groups_cross"], g), x)
+        return x
 
     def cache_decls(self, batch, max_len):
         cfg = self.cfg
@@ -410,3 +484,12 @@ def build_model(cfg: ArchConfig, tp: int = 1, remat: str = "minimal",
         raise ValueError(f"remat {remat!r}: minimal, dots or none")
     return _FAMILY_MODELS.get(cfg.family, Model)(cfg, tp, dev, remat,
                                                  kv_quant)
+
+
+def cache_partition_axes(model: Model, batch: int, max_len: int):
+    """Logical axes tree for the cache (the dry-run's per-device shares)."""
+    def axes(tree):
+        if _is_cache_leaf(tree):
+            return tree[1]
+        return {k: axes(v) for k, v in tree.items()}
+    return axes(model.cache_decls(batch, max_len))

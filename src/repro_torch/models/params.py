@@ -1,18 +1,23 @@
 """Parameter declaration / init system.
 
 Single source of truth per model: a nested dict of ``ParamDecl`` (shape +
-logical axis names + init), from which the concrete parameters
-(``init_params``) and their count (``count_params``) are derived, so
-weights and declarations can never drift apart.
+logical axis names + init). From it we derive
+  * concrete parameters       (``init_params``),
+  * meta tensors for the dry-run, no memory (``abstract_params``),
+  * partition-spec trees      (``logical_axes``, ``partition_specs``)
+and their count (``count_params``), so weights, dry-run stand-ins and
+shardings can never drift apart.
 
 Mirrors ``src/repro/models/params.py``.  ``ParamDecl``, ``_map_decls``,
-``_fan_in`` and ``count_params`` are verbatim; ``init_params`` draws each
+``_fan_in``, ``logical_axes``, ``partition_specs`` and ``count_params``
+are verbatim (``resolve_spec`` returns a plain tuple, see
+distributed/sharding.py); ``abstract_params`` gives meta tensors where
+the reference gives ``ShapeDtypeStruct``s; ``init_params`` draws each
 leaf from its own ``torch.Generator`` seeded from the run's seed and
 ``zlib_crc(path)``, as the reference folds its key per path, so adding or
 removing a parameter does not reshuffle the others.  The two packages'
 generators give different numbers from one seed: tests that compare them
-carry the reference's weights across (models/carry.py).  The abstract
-trees and partition specs of the dry-run wait for its slice.
+carry the reference's weights across (models/carry.py).
 """
 from __future__ import annotations
 
@@ -105,6 +110,26 @@ def init_params(decls: Decls, seed: int = 0, dtype=torch.float32,
 
 def zlib_crc(s: str) -> int:
     return zlib.crc32(s.encode()) & 0x7FFFFFFF
+
+
+def abstract_params(decls: Decls, dtype=torch.float32):
+    """Meta tensors of the declared shapes in ``dtype``: the dry-run's
+    parameters, which allocate nothing."""
+    return _map_decls(decls, lambda _, d: torch.empty(d.shape, dtype=dtype,
+                                                      device="meta"))
+
+
+def logical_axes(decls: Decls):
+    return _map_decls(decls, lambda _, d: d.axes)
+
+
+from ..distributed.sharding import resolve_spec  # noqa: E402 (re-export)
+
+
+def partition_specs(decls: Decls, rules: Dict[str, Any],
+                    mesh_axis_names: Tuple[str, ...]):
+    return _map_decls(
+        decls, lambda _, d: resolve_spec(d.axes, rules, mesh_axis_names))
 
 
 def count_params(decls: Decls) -> int:

@@ -1,21 +1,24 @@
 """The training step.
 
-Mirrors ``src/repro/train/train_step.py``'s ``init_train_state`` and
-``make_train_step``: ``step_fn(state, batch) -> (state, metrics)`` takes
-a state ``{"params", "opt": OptState(m, v, step)}`` in the reference's
-layout (stacked segments, f32) and a batch of ``tokens`` and ``labels``.
-Gradient accumulation (``rc.microbatches > 1``) is the reference's
+Mirrors ``src/repro/train/train_step.py``'s ``init_train_state``,
+``abstract_train_state``, ``train_state_axes`` and ``make_train_step``:
+``step_fn(state, batch) -> (state, metrics)`` takes a state ``{"params",
+"opt": OptState(m, v, step)}`` in the reference's layout (stacked
+segments, f32) and a batch of ``tokens`` and ``labels`` (and the memory
+of a model with cross layers).  Gradient accumulation (``rc.microbatches > 1``) is the reference's
 ``lax.scan`` over microbatch slices as a loop that sums f32 gradients.
 
 What differs is memory, not arithmetic.  The state is updated in place
 (the returned state holds the same tensors).  The gradient is taken
-with respect to per-layer views of the stacked leaves, each its own
-autograd leaf: the gradient of ``stacked[i]`` would otherwise be a zero
-tensor of the whole stacked leaf for every layer.  The views share the
-stacked storage, so AdamW's in-place update of a view is the update of
-the stacked leaf, and the checkpoint and carry layouts stay the
-reference's.  ``abstract_train_state`` and ``train_state_axes`` (the
-dry-run's) wait for its slice.
+with respect to per-layer views of the stacked leaves (every entry of
+``model.stacked()``: the decoder's, an enc-dec model's encoder, the
+VLM's groups), each its own autograd leaf: the gradient of
+``stacked[i]`` would otherwise be a zero tensor of the whole stacked
+leaf for every layer.  The views share the stacked storage, so AdamW's
+in-place update of a view is the update of the stacked leaf, and the
+checkpoint and carry layouts stay the reference's.  The dry-run's
+``abstract_train_state`` is meta tensors (no memory) and
+``train_state_axes`` its logical-axis tree.
 
 A train state crosses between the packages whole:
 ``train_state_from_numpy`` takes the reference's state as numpy
@@ -33,15 +36,31 @@ import torch
 from ..configs.base import RunConfig
 from ..models.carry import tensor_from_numpy
 from ..models.model import Model
-from ..models.params import init_params
-from ..models.transformer import segments
+from ..models.params import abstract_params, init_params, logical_axes
 from .optim import OptState, adamw_update, init_opt_state
-from .tree import tree_leaves, tree_map
+from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
     params = init_params(model.decls, seed, torch.float32, model.device)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def abstract_train_state(model: Model) -> Dict[str, Any]:
+    """The train state as meta tensors: f32 parameters, two moments of
+    their shapes and the 0-d int32 step."""
+    params = abstract_params(model.decls, torch.float32)
+    like = lambda tree: tree_map(torch.empty_like, tree)
+    return {"params": params,
+            "opt": OptState(like(params), like(params),
+                            torch.empty((), dtype=torch.int32,
+                                        device="meta"))}
+
+
+def train_state_axes(model: Model):
+    """Logical-axis tree matching the train state structure."""
+    p_axes = logical_axes(model.decls)
+    return {"params": p_axes, "opt": OptState(p_axes, p_axes, ())}
 
 
 def train_state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
@@ -63,15 +82,36 @@ def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
             "opt": OptState(host(m), host(v), step.detach().cpu().numpy())}
 
 
+def _split(tree, depth: int):
+    n = tree_leaves(tree)[0].shape[0]
+    layers = [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]
+    return layers if depth == 1 else [_split(t, depth - 1) for t in layers]
+
+
 def split_layers(model: Model, tree) -> Dict[str, Any]:
     """``tree`` (parameters or a moment, the reference's layout) with each
-    stacked segment as a list of per-layer trees of views."""
+    stacked entry (``model.stacked()``) as a list of per-layer trees of
+    views (a list of such lists for two stacked levels)."""
     out = dict(tree)
-    for seg in segments(model.cfg):
-        if seg.scanned:
-            out[seg.name] = [tree_map(lambda t, i=i: t[i], tree[seg.name])
-                             for i in range(seg.n_layers)]
+    for name, depth in model.stacked().items():
+        out[name] = _split(tree[name], depth)
     return out
+
+
+def stack_layers(model: Model, params, leaves) -> Dict[str, Any]:
+    """``leaves`` in ``split_layers(model, params)``'s order (gradients
+    from ``loss_and_grads``) as a tree of the parameters' stacked layout,
+    as jax returns them."""
+    _, treedef = tree_flatten(split_layers(model, params))
+    tree = tree_unflatten(treedef, leaves)
+
+    def stack(layers, depth):
+        if depth > 1:
+            layers = [stack(t, depth - 1) for t in layers]
+        return tree_map(lambda *ls: torch.stack(ls), *layers)
+    for name, depth in model.stacked().items():
+        tree[name] = stack(tree[name], depth)
+    return tree
 
 
 def loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor],

@@ -642,8 +642,10 @@ def test_families_not_yet_ported_raise():
     build with the reference's parameter counts and cache bytes (at full
     width too, from the declarations alone; seamless's cross cache at
     ``enc_len``), cross-attention blocks declare what the reference's do,
-    and the two families' ``loss`` (training, not ported) raises, as the
-    int8 cache on them does; the SSM and hybrid families build with the
+    the two families' stacked parameter entries are those their training
+    splits into layers (their ``loss`` is held against the reference's
+    in tests/test_torch_crossattn_train.py), and the int8 cache on them
+    raises; the SSM and hybrid families build with the
     reference's parameter counts, as do the MoE family and the int8
     cache; an unknown mode and remat policy raise."""
     from repro.models.transformer import block_decls as ref_block_decls
@@ -694,8 +696,9 @@ def test_families_not_yet_ported_raise():
             for shape in ((4, 544), (1, 4098)):
                 assert nbytes(model.cache_decls(*shape, **kw)) \
                     == nbytes(ref_model.cache_decls(*shape, **kw))
-            with pytest.raises(NotImplementedError, match="training"):
-                model.loss({}, {})
+            assert model.stacked() == (
+                {"layers": 1, "encoder": 1} if kw else
+                {"groups_self": 2, "groups_cross": 1})
             with pytest.raises(NotImplementedError, match="int8"):
                 build_model(cfg, kv_quant=True, device="cpu")
         model = build_model(configs.get(arch), device="cpu")

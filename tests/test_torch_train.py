@@ -58,9 +58,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model, layers
 from repro_torch.train import checkpoint, fault_tolerance, optim
-from repro_torch.models.transformer import segments
 from repro_torch.train.train_step import (init_train_state, loss_and_grads,
-                                          make_train_step, split_layers,
+                                          make_train_step, stack_layers,
                                           train_state_from_numpy,
                                           train_state_to_numpy)
 from repro_torch.train.tree import (tree_flatten, tree_leaves, tree_map,
@@ -116,13 +115,7 @@ def ref_run():
 def stack_grads(model, params, grads):
     """Per-layer gradients (``loss_and_grads``) as a tree of the
     parameters' stacked layout, as jax returns them."""
-    _, treedef = tree_flatten(split_layers(model, params))
-    tree = tree_unflatten(treedef, grads)
-    for seg in segments(model.cfg):
-        if seg.scanned:
-            tree[seg.name] = tree_map(lambda *ls: torch.stack(ls),
-                                      *tree[seg.name])
-    return tree
+    return stack_layers(model, params, grads)
 
 
 def _port(remat="minimal"):
