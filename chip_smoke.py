@@ -223,7 +223,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    ``torch.cuda.set_sync_debug_mode("warn")``, by source line.
    seg_preagg is held as in phase 4 on the shared members' inputs (JSON
    rows named ``serve-..``).
-11. training (``train_phase``, last; phase 8's model is freed first):
+11. training (``train_phase``, after phase 8, whose model is freed first):
    a. the forward kernels' lse (``return_lse=True``, what training
    saves) against ``flash_attention_plain``'s in bf16 and f32, within
    ``LSE_TOL`` times max(1, max |lse|), the output bit for bit the one
@@ -235,8 +235,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    on the model's permuted views: bf16 and f32, head dims 64/96/128,
    causal and not, G = 1 and 4, S = 300, S != T both ways (130 x 200
    causal, 200 x 70 not), and the training shapes 4 x 512 and 1 x 4096
-   (qwen3-4b's) and seamless-m4t-medium's non-causal 4 x 512 (16 heads
-   of 64, G = 1);
+   (qwen3-4b's), seamless-m4t-medium's non-causal 4 x 512 (16 heads
+   of 64, G = 1) and hymba-1.5b's causal 1 x 2048 (5 kv heads of 5 q
+   heads, d 64: the first G = 5 backward);
    max |err| of dq, dk, dv within ``BWD_TOL`` times max(1, max |want|),
    the plain backward's gap printed beside it, and a second launch bit
    for bit the first;
@@ -274,7 +275,45 @@ Phases, one line each (any failure raises and the script exits non-zero):
    arch=seamless-m4t-medium`` lines), the profiled step and its
    ``[dryrun]`` line; two ``flash_attention_bwd`` JSON rows, an encoder
    layer's and a cross layer's (q (4, 16, 1, 512, 64), non-causal), on
-   the inputs the step gave their first backward calls.
+   the inputs the step gave their first backward calls;
+   f. the SSM and hybrid families trained as in c (``train_ssm``, at
+   ``SSM_TRAIN``'s shapes): hymba-1.5b at 1 x 2048 (past its 1,024-token
+   window, so the 29 windowed layers' mask bites in the backward): loss,
+   grad norm and the wq, wk and wv gradients of ``global_0`` and
+   ``global_2`` and the ``ssm/wx`` and ``ssm/wB`` gradients of a windowed
+   and a global layer through the kernels and the plain versions; flash
+   calls by role 6 "self" forward and 3 backward (6 + 6 launches); 5
+   AdamW steps, the profiled step and its ``[dryrun]`` line; one
+   ``flash_attention_bwd`` JSON row on the inputs the step gave its first
+   backward call (q (1, 5, 5, 2048, 64), causal).  mamba2-130m at 4 x 512
+   launches no kernel of the repo, so its first step's loss, grad norm and
+   the ``ssm/wx`` and ``ssm/wB`` gradients of its first and last layer are
+   held against the same step on the CPU in the same dtypes, on a short
+   batch of 1 x 256 (``CPU_STEP_SHAPE``, one SSD chunk), to the same
+   limits; then its 5 AdamW steps (no launch) and profiled step;
+12. the reference's four decode cells that fit one card (``decode_phase``,
+   last): mamba2-130m and hymba-1.5b, bf16 weights from seed 0, at
+   ``decode_32k`` (128 x 32,768) and ``long_500k`` (1 x 524,288), with no
+   prefill: a cache of exactly ``model.input_specs(shape)["cache"]``'s
+   shapes and dtypes drawn from a seeded generator on the card (hymba's
+   ``decode_32k`` cache is 21.9 GB), one ``decode_step`` at pos = seq_len
+   - 1, as the dry-run counts it (every global slot holds an earlier
+   position, each ring has wrapped).  Each cell (``decode_cell``): the
+   cache written in place; every slot the step does not write bit for
+   bit what it was (against a copy taken before the step: each layer's k
+   and v but slot pos % T, each conv ring shifted by one), and every
+   written leaf moved; batch row 0's cache, copied to the CPU before the
+   step, stepped there on the same weights: logits within 0.5 of the
+   card's row 0; stepped again there with each block fed the card's own
+   input to it (``BlockInputs``), each written k/v slot within 2 bf16
+   ulps at the largest magnitude of that layer's slot (the free-running
+   step's slots carry the rounding drift of the layers below and are
+   printed beside it; ``[check] decode=`` lines);
+   then one profiled step (``[profile]``: host and kernel ms) with its
+   ``[dryrun]`` line (bytes equal, kernel ms at or above both firm
+   bounds) and a ``[decode]`` line: the kernel ms by kind (copies,
+   GEMMs, softmax, reductions, other), its peak ``max_memory_allocated``
+   (under 80 GiB) beside the count's estimate, and the seconds.
 
 The last lines: the card's name and power limit, one JSON object with a
 row per kernel and, for seg_preagg, per main-path shape, and for
@@ -3879,35 +3918,66 @@ def lm_profiles(model, params, prompt, cache, tok, label, max_len,
     decode step from ``cache`` (``max_len`` slots), a prefill of
     ``tok[:, :S]`` (each call writes the same token at position S
     again); beside each, the dry-run's count of the same step
-    (``dryrun_beside``)."""
-    import torch
+    (``profile_step``)."""
     B, S = prompt.shape
     step = lambda: model.decode_step(params, cache, tok[:, S:S + 1], S)
     prefill = lambda: model.prefill(params, _batch(model, prompt, memory))
     out_bytes = _cache_bytes(prefill()[1])
-    for what, fn, kind, n, cache_bytes in (
-            (f"prefill {B}x{S}", prefill, "prefill", S, out_bytes),
-            ("decode step", step, "decode", max_len, _cache_bytes(cache))):
-        torch.cuda.reset_peak_memory_stats()
-        host_ms = _host_ms(fn)
-        peak = torch.cuda.max_memory_allocated()
-        _, kernels = _profile(fn)
-        if not kernels:
-            _say("profile", lm=what.replace(" ", "_"), arch=label,
-                 device_ms="not measured")
-            continue
-        dev_ms = sum(kernels.values())
-        flash = sum(v for k2, v in kernels.items()
-                    if "flash_attention_kernel" in k2)
-        top = sorted(kernels, key=kernels.get, reverse=True)[:6]
+    profile_step(model, params, f"prefill {B}x{S}", prefill, "prefill", B,
+                 S, out_bytes, label, memory)
+    profile_step(model, params, "decode step", step, "decode", B, max_len,
+                 _cache_bytes(cache), label, memory, prompt=S)
+
+
+def profile_step(model, params, what, fn, kind, B, n, cache_bytes, label,
+                 memory=None, prompt=None):
+    """One step ``fn`` of ``kind`` (batch ``B``, ``n`` tokens or cache
+    slots; the line shows ``prompt``, else ``n``): its host ms
+    (synchronised, after a warm-up), the peak ``max_memory_allocated`` of
+    those calls, and one profiled call's device kernels (a ``[profile]``
+    line), then ``dryrun_beside``.
+    Returns the ``dryrun_beside`` record, the kernel ms, the peak and the
+    kernels' ms by name, or None where the trace held no kernel."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    host_ms = _host_ms(fn)
+    peak = torch.cuda.max_memory_allocated()
+    _, kernels = _profile(fn)
+    if not kernels:
         _say("profile", lm=what.replace(" ", "_"), arch=label,
-             batch=B, prompt=S, host_ms=f"{host_ms:.3f}",
-             kernel_ms=f"{dev_ms:.4f}", busy_share=f"{dev_ms / host_ms:.4f}",
-             flash_ms=f"{flash:.4f}", kernels=len(kernels),
-             top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
-                             for k2 in top}, separators=(",", ":")))
-        dryrun_beside(model, kind, B, n, dev_ms, label, params,
-                      cache_bytes=cache_bytes, memory=memory, peak=peak)
+             device_ms="not measured")
+        return None
+    dev_ms = sum(kernels.values())
+    flash = sum(v for k2, v in kernels.items()
+                if "flash_attention_kernel" in k2)
+    top = sorted(kernels, key=kernels.get, reverse=True)[:6]
+    _say("profile", lm=what.replace(" ", "_"), arch=label,
+         batch=B, prompt=n if prompt is None else prompt,
+         host_ms=f"{host_ms:.3f}",
+         kernel_ms=f"{dev_ms:.4f}", busy_share=f"{dev_ms / host_ms:.4f}",
+         flash_ms=f"{flash:.4f}", kernels=len(kernels),
+         top=json.dumps({k2.replace(" ", "_")[:40]: round(kernels[k2], 4)
+                         for k2 in top}, separators=(",", ":")))
+    rec = dryrun_beside(model, kind, B, n, dev_ms, label, params,
+                        cache_bytes=cache_bytes, memory=memory, peak=peak)
+    return rec, dev_ms, peak, kernels
+
+
+# a profile's kernels grouped by what they do, from their names (first
+# match wins; "other" is every elementwise and indexing kernel left)
+KERNEL_KINDS = (("copy", ("copy", "Memcpy", "CatArray")),
+                ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
+                ("softmax", ("softmax",)), ("reduce", ("reduce",)))
+
+
+def _by_kind(kernels: dict) -> dict:
+    """Device ms of ``kernels`` (name -> ms) by ``KERNEL_KINDS``."""
+    out = {}
+    for name, ms in kernels.items():
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(key in name for key in keys)), "other")
+        out[kind] = round(out.get(kind, 0.0) + ms, 4)
+    return out
 
 
 def dryrun_beside(model, kind, B, S, kernel_ms, label, params,
@@ -4323,6 +4393,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
 # phase 11e: the enc-dec family trained at full width (its f32 state,
 # 878,245,900 parameters x 16 bytes with the gradients, is 14.1 GB)
 ENCDEC_ARCH = "seamless-m4t-medium"
+# phase 11f: the SSM and hybrid families trained at full width, each at
+# its (batch, tokens) a step: hymba-1.5b at 1 x 2048, past its 1,024-token
+# window, so the 29 windowed layers' mask bites in the backward (at 4 x
+# 512 it never does).  mamba2-130m launches no kernel of the repo, so its
+# first step is held against the same step on the CPU, on a short batch
+# of CPU_STEP_SHAPE (one SSD chunk of 256) at full width
+SSM_TRAIN = {"mamba2-130m": (TRAIN_BATCH, TRAIN_SEQ), "hymba-1.5b": (1, 2048)}
+CPU_STEP_SHAPE = (1, 256)
 # phase 11d: the driver at a small config (head dim 64)
 DRIVER_ARGS = ("--d-model", "512", "--layers", "4", "--vocab", "2048",
                "--steps", "12", "--batch", "8", "--seq", "128",
@@ -4432,8 +4510,9 @@ def flash_bwd_checks(device) -> None:
     plain backward's gap printed beside it, and bit for bit against its
     own second launch.  The last three cases are the training paths'
     own: qwen3-4b (8 kv heads of 4 q heads, d 128) at 4 x 512 and 1 x
-    4096, and seamless-m4t-medium's non-causal encoder and cross layers
-    (16 heads of 64, G = 1) at 4 x 512."""
+    4096, seamless-m4t-medium's non-causal encoder and cross layers (16
+    heads of 64, G = 1) at 4 x 512, and hymba-1.5b's causal global layers
+    (5 kv heads of 5 q heads, d 64) at 1 x 2048."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -4460,6 +4539,11 @@ def flash_bwd_checks(device) -> None:
                (TRAIN_BATCH, TRAIN_SEQ, enc.n_kv_heads,
                 enc.n_heads // enc.n_kv_heads, enc.resolved_head_dim),
                TRAIN_SEQ, "bfloat16", False)]
+    # phase 11f's hymba global layers (5 kv heads of 5 q heads, d 64)
+    hy, (B, S) = configs.get("hymba-1.5b"), SSM_TRAIN["hymba-1.5b"]
+    cases += [(f"bfloat16_{hy.name}_{B}x{S}", (B, S, hy.n_kv_heads,
+               hy.n_heads // hy.n_kv_heads, hy.resolved_head_dim), S,
+               "bfloat16", True)]
     for name, (B, S, K, G, d), T, dt, causal in cases:
         tdt = getattr(torch, dt)
         q, _, _ = _model_views(B, S, K, G, d, tdt, g, device)
@@ -4605,14 +4689,16 @@ def _plain_attention():
 
 def _grad_leaves(model, params, grads, picks) -> dict:
     """Copies of gradient leaves by name, from ``loss_and_grads``'
-    per-layer gradients: ``picks`` holds (stacked entry, layer, block
-    part, leaf) tuples."""
+    per-layer gradients: ``picks`` holds (entry, layer, block part, leaf)
+    tuples, the layer None for an unscanned single-layer entry (hymba's
+    ``global_0/1/2``)."""
     from repro_torch.train.train_step import split_layers
     from repro_torch.train.tree import tree_flatten, tree_unflatten
     _, treedef = tree_flatten(split_layers(model, params))
     tree = tree_unflatten(treedef, grads)
-    return {f"{entry}{i}.{part}.{w}": tree[entry][i][part][w].detach()
-            .clone() for entry, i, part, w in picks}
+    return {f"{entry}{'' if i is None else i}.{part}.{w}":
+            (tree[entry] if i is None else tree[entry][i])[part][w]
+            .detach().clone() for entry, i, part, w in picks}
 
 
 def _leaf_gaps(got: dict, want: dict) -> dict:
@@ -4675,18 +4761,20 @@ class TrainFlashRoles:
         fa.flash_attention, fa.flash_attention_bwd = self._saved
 
 
-def _train_setup(arch, device):
+def _train_setup(arch, device, shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """``arch`` at full width and depth for training: f32 master weights
     from seed 0 (every ``cross/gate`` opened to 1.0 where there are
     cross layers), remat "minimal", and ``TRAIN_STEPS + 2`` batches of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from a token store pinned at
-    its data epoch (with seeded bf16 memories for a model with cross
-    layers: frames as long as the tokens, or the image embeddings)."""
+    ``shape`` (batch, tokens) from a token store of documents one token
+    longer, pinned at its data epoch (with seeded bf16 memories for a
+    model with cross layers: frames as long as the tokens, or the image
+    embeddings)."""
     import torch
     from repro_torch import configs
     from repro_torch.data import TokenStore, token_corpus
     from repro_torch.models import build_model
     from repro_torch.train.train_step import init_train_state
+    B, S = shape
     cfg = configs.get(arch)
     model = build_model(cfg, tp=1, remat="minimal", device=device)
     t0 = time.perf_counter()
@@ -4696,20 +4784,18 @@ def _train_setup(arch, device):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     store = TokenStore.create(n_nodes=4, device=device)
-    epoch = store.ingest(token_corpus(32, TRAIN_SEQ + 1, cfg.vocab_size,
-                                      seed=0))
-    stream = store.batches(TRAIN_BATCH, TRAIN_SEQ, as_of=epoch, seed=0)
+    epoch = store.ingest(token_corpus(32, S + 1, cfg.vocab_size, seed=0))
+    stream = store.batches(B, S, as_of=epoch, seed=0)
     batches = [{k: torch.as_tensor(x, device=device)
                 for k, x in next(stream).items()}
                for _ in range(TRAIN_STEPS + 2)]
     if model.memory_key is not None:
-        shape = (TRAIN_BATCH, TRAIN_SEQ)
         for i, b in enumerate(batches):
             b[model.memory_key] = next(iter(_memories(
-                model, (shape + (0,),), device, seed=20 + i).values()))
+                model, ((B, S, 0),), device, seed=20 + i).values()))
     st = store.storage_stats()
     _say("train", arch=cfg.name, params=model.n_params, remat=model.remat,
-         batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=f"{init_s:.2f}",
+         batch=B, seq=S, init_s=f"{init_s:.2f}",
          corpus_tokens=st["rows"], data_epoch=epoch,
          compression=f"{st['ratio']:.2f}",
          memory=json.dumps(list(batches[0][model.memory_key].shape))
@@ -4717,66 +4803,105 @@ def _train_setup(arch, device):
     return cfg, model, state, batches
 
 
-def train_path(arch, device, picks, want_roles, keep=False):
-    """Phases 11c and 11e: ``arch`` trained at full width and depth
-    (``_train_setup``).  One step's loss, global grad norm and the
-    gradient leaves ``picks`` (``_grad_leaves``) through the kernels and
-    through the plain versions: loss within ``TRAIN_LOSS_TOL``, norm
-    within ``TRAIN_GNORM_RTOL``, each leaf within ``TRAIN_LEAF_RTOL`` and
-    non-zero.  The kernel step's flash calls by role and direction
-    (``TrainFlashRoles``, counters zeroed just before and read just
-    after) must be ``want_roles``; the launches, 1 a forward call and 2 a
-    backward call, and no other kernel.  Then ``TRAIN_STEPS`` AdamW steps
-    (each loss finite, the same launches), one profiled step and the
-    dry-run beside it.  Returns the launches of one step and, with
-    ``keep``, the first backward call's inputs of each role."""
+def _step_grads(model, params, batch, picks):
+    """One step's loss, global grad norm and the gradient leaves
+    ``picks`` (``_grad_leaves``), as floats and leaf copies."""
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    loss, grads = loss_and_grads(model, params, batch)
+    return (float(loss), float(global_norm(grads)),
+            _grad_leaves(model, params, grads, picks))
+
+
+def _cpu_step_grads(model, params, batch, picks):
+    """``_step_grads`` of the same model, weights and batch on the CPU, in
+    the same dtypes (f32 master weights, bf16 compute)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import tree_map
+    cpu = build_model(model.cfg, tp=model.tp, remat=model.remat,
+                      device="cpu")
+    return _step_grads(cpu, tree_map(lambda t: t.detach().cpu(), params),
+                       {k: x.cpu() for k, x in batch.items()}, picks)
+
+
+def train_path(arch, device, picks, want_roles, keep=False,
+               shape=(TRAIN_BATCH, TRAIN_SEQ), against="plain"):
+    """Phases 11c, 11e and 11f: ``arch`` trained at full width and depth
+    on batches of ``shape`` (``_train_setup``).  One step's loss, global
+    grad norm and the gradient leaves ``picks`` (``_grad_leaves``) on the
+    card, held against a second route: with ``against="plain"`` the same
+    step through the plain versions of the kernels, with ``"cpu"`` (a
+    model that launches no kernel of the repo, where the plain route is
+    the card's own) the same step on the CPU in the same dtypes, both on
+    a short batch of ``CPU_STEP_SHAPE``.  Loss within ``TRAIN_LOSS_TOL``,
+    norm within ``TRAIN_GNORM_RTOL``, each leaf within
+    ``TRAIN_LEAF_RTOL`` and non-zero.  The card's step's flash calls by
+    role and direction (``TrainFlashRoles``, counters zeroed just before
+    and read just after) must be ``want_roles``; the launches, 1 a
+    forward call and 2 a backward call, and no other kernel.  Then
+    ``TRAIN_STEPS`` AdamW steps (each loss finite, the same launches),
+    one profiled step and the dry-run beside it.  Returns the launches
+    of one step and, with ``keep``, the first backward call's inputs of
+    each role."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.kernels import ops
-    from repro_torch.train.optim import global_norm
-    from repro_torch.train.train_step import loss_and_grads, make_train_step
-    cfg, model, state, batches = _train_setup(arch, device)
+    from repro_torch.train.train_step import make_train_step
+    B, S = shape
+    cfg, model, state, batches = _train_setup(arch, device, shape)
 
-    # ---- one step's loss and grad norm, kernels then plain versions
+    # ---- one step's loss, grad norm and leaves on the card, then again
+    # through the plain versions or on the CPU
+    first = batches[0]
+    if against == "cpu":
+        first = {k: x[:CPU_STEP_SHAPE[0], :CPU_STEP_SHAPE[1]]
+                 for k, x in first.items()}
     ops.reset_launch_counts()
     with TrainFlashRoles(keep) as roles:
-        loss_k, grads = loss_and_grads(model, state["params"], batches[0])
-    gnorm_k = float(global_norm(grads))
-    leaves_k = _grad_leaves(model, state["params"], grads, picks)
+        loss_k, gnorm_k, leaves_k = _step_grads(model, state["params"],
+                                                first, picks)
     torch.cuda.synchronize()
     per_step = ops.launch_counts()
-    del grads
-    undo = _plain_attention()
-    try:
-        loss_p, grads = loss_and_grads(model, state["params"], batches[0])
-        gnorm_p = float(global_norm(grads))
-        leaves_p = _grad_leaves(model, state["params"], grads, picks)
-    finally:
-        undo()
-    del grads
-    loss_k, loss_p = float(loss_k), float(loss_p)
-    gaps = _leaf_gaps(leaves_k, leaves_p)
+    t0 = time.perf_counter()
+    if against == "cpu":
+        loss_p, gnorm_p, leaves_p = _cpu_step_grads(model, state["params"],
+                                                    first, picks)
+        names = ("card", "cpu")
+    else:
+        undo = _plain_attention()
+        try:
+            loss_p, gnorm_p, leaves_p = _step_grads(
+                model, state["params"], first, picks)
+        finally:
+            undo()
+        names = ("kernels", "plain")
+    ref_s = time.perf_counter() - t0
+    gaps = _leaf_gaps({n: t.cpu() for n, t in leaves_k.items()},
+                      {n: t.cpu() for n, t in leaves_p.items()})
     norms = {n: float(t.norm()) for n, t in leaves_k.items()}
     del leaves_k, leaves_p
-    _say("check", train="kernels_vs_plain", arch=cfg.name,
-         loss_kernels=f"{loss_k:.6f}",
-         loss_plain=f"{loss_p:.6f}", loss_tol=TRAIN_LOSS_TOL,
-         grad_norm_kernels=f"{gnorm_k:.6f}",
-         grad_norm_plain=f"{gnorm_p:.6f}", grad_norm_rtol=TRAIN_GNORM_RTOL,
+    k_, p_ = names
+    _say("check", train=f"{k_}_vs_{p_}", arch=cfg.name,
+         batch="x".join(map(str, first["tokens"].shape)), **{
+             f"loss_{k_}": f"{loss_k:.6f}", f"loss_{p_}": f"{loss_p:.6f}"},
+         loss_tol=TRAIN_LOSS_TOL, **{
+             f"grad_norm_{k_}": f"{gnorm_k:.6f}",
+             f"grad_norm_{p_}": f"{gnorm_p:.6f}"},
+         grad_norm_rtol=TRAIN_GNORM_RTOL,
          leaf_rel_gaps=json.dumps({n: float(f"{x:.3g}")
                                    for n, x in gaps.items()},
                                   separators=(",", ":")),
          leaf_norms=json.dumps({n: float(f"{x:.4g}")
                                 for n, x in norms.items()},
                                separators=(",", ":")),
-         leaf_rtol=TRAIN_LEAF_RTOL)
+         leaf_rtol=TRAIN_LEAF_RTOL, **{f"{p_}_seconds": f"{ref_s:.1f}"})
     if not (np.isfinite([loss_k, loss_p, gnorm_k, gnorm_p,
                          *gaps.values()]).all()
             and abs(loss_k - loss_p) <= TRAIN_LOSS_TOL
             and abs(gnorm_k - gnorm_p) <= TRAIN_GNORM_RTOL * gnorm_p
             and max(gaps.values()) <= TRAIN_LEAF_RTOL
             and min(norms.values()) > 0):
-        raise AssertionError(f"training step {cfg.name}, kernels vs plain: "
+        raise AssertionError(f"training step {cfg.name}, {k_} vs {p_}: "
                              f"loss {loss_k} / {loss_p}, grad norm "
                              f"{gnorm_k} / {gnorm_p}, leaf gaps {gaps}, "
                              f"leaf norms {norms}")
@@ -4785,6 +4910,7 @@ def train_path(arch, device, picks, want_roles, keep=False):
                                    if w == "forward"),
             "flash_attention_bwd": 2 * sum(
                 n for (_, w), n in want_roles.items() if w == "backward")}
+    want = {k: n for k, n in want.items() if n}
     got = {k: n for k, n in per_step.items() if n}
     _say("launches", path="train_step", arch=cfg.name,
          roles=json.dumps(got_roles, separators=(",", ":")), **got)
@@ -4810,7 +4936,7 @@ def train_path(arch, device, picks, want_roles, keep=False):
         _say("train", arch=cfg.name, step=i + 1, loss=f"{loss:.6f}",
              grad_norm=f"{float(met['grad_norm']):.6f}",
              lr=f"{float(met['lr']):.3e}", step_ms=f"{times[-1] * 1e3:.3f}",
-             tok_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / times[-1]:.1f}",
+             tok_per_s=f"{B * S / times[-1]:.1f}",
              max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
              launches=json.dumps(got, separators=(",", ":")))
         if not np.isfinite(loss) or got != want:
@@ -4835,10 +4961,10 @@ def train_path(arch, device, picks, want_roles, keep=False):
     bwd_ms = sum(v for k, v in kern.items()
                  if "flash_attention_bwd" in k) / 1e3
     top = sorted(kern, key=kern.get, reverse=True)[:6]
-    _say("train", summary=cfg.name, steps=TRAIN_STEPS,
+    _say("train", summary=cfg.name, batch=B, seq=S, steps=TRAIN_STEPS,
          step_ms_median=f"{host_ms:.3f}",
          step_ms_all=json.dumps([round(t * 1e3, 3) for t in times]),
-         tok_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / host_ms * 1e3:.1f}",
+         tok_per_s=f"{B * S / host_ms * 1e3:.1f}",
          max_memory_allocated_gib=f"{peak / 2**30:.3f}",
          profiled_kernel_ms=f"{dev_ms:.3f}",
          busy_share=f"{dev_ms / host_ms:.4f}",
@@ -4847,7 +4973,7 @@ def train_path(arch, device, picks, want_roles, keep=False):
          flash_bwd_share=f"{bwd_ms / dev_ms:.4f}", kernels=len(kern),
          top=json.dumps({k.replace(" ", "_")[:72]: round(kern[k] / 1e3, 3)
                          for k in top}, separators=(",", ":")))
-    dryrun_beside(model, "train", TRAIN_BATCH, TRAIN_SEQ, dev_ms, cfg.name,
+    dryrun_beside(model, "train", B, S, dev_ms, cfg.name,
                   state["params"], state=state, peak=peak)
     _say("launches", path="train", arch=cfg.name, **want)
     return want, roles.kept
@@ -4892,6 +5018,54 @@ def train_seamless(device) -> list:
                           label=f"{cfg.name} train {TRAIN_BATCH}x"
                                 f"{TRAIN_SEQ} {role}")
             for role in ("encoder", "cross")]
+    return rows
+
+
+def train_ssm(device) -> list:
+    """Phase 11f: the SSM and hybrid families trained at full width and
+    depth (``train_path``) at their ``SSM_TRAIN`` shapes.  hymba-1.5b:
+    kernels against plain on the wq, wk and wv gradients of its first
+    and last global layer and the ``ssm/wx`` and ``ssm/wB`` gradients of
+    one windowed and one global layer (not ``ln_ssm``, declared and never
+    read: its gradient is zero in both packages); its 3 global layers
+    forward twice (remat) and backward once; returns its
+    ``flash_attention_bwd`` JSON row, on the inputs the step gave its
+    first backward call.  mamba2-130m: the card against the CPU on the
+    ``ssm/wx`` and ``ssm/wB`` gradients of its first and last layer; no
+    kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.transformer import segments
+    rows = []
+    for arch, (B, S) in SSM_TRAIN.items():
+        t0 = time.perf_counter()
+        cfg = configs.get(arch)
+        if not cfg.n_heads:
+            picks = [("layers", i, "ssm", w) for i in (0, cfg.n_layers - 1)
+                     for w in ("wx", "wB")]
+            train_path(arch, device, picks, {}, shape=(B, S),
+                       against="cpu")
+        else:
+            segs = segments(cfg)
+            glob = [seg.name for seg in segs if seg.window is None]
+            swa = next(seg for seg in segs if seg.window is not None)
+            picks = [(g, None, "attn", w) for g in (glob[0], glob[-1])
+                     for w in ("wq", "wk", "wv")]
+            picks += [(e, i, "ssm", w) for e, i in (
+                (swa.name, 0 if swa.scanned else None), (glob[1], None))
+                for w in ("wx", "wB")]
+            want, kept = train_path(
+                arch, device, picks, {("self", "forward"): 2 * len(glob),
+                                      ("self", "backward"): len(glob)},
+                keep=True, shape=(B, S))
+            rows.append(flash_bwd_row(
+                *kept["self"], launches=want["flash_attention_bwd"],
+                label=f"{cfg.name} train {B}x{S} self"))
+            del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+        _say("train", arch=arch, section="11f",
+             seconds=f"{time.perf_counter() - t0:.1f}")
     return rows
 
 
@@ -4955,7 +5129,8 @@ def driver_replay(device) -> None:
 
 
 def train_phase(device):
-    """Phase 11: training.  Returns the flash_attention_bwd JSON rows."""
+    """Phase 11: training (11a-11f).  Returns the flash_attention_bwd JSON
+    rows."""
     import torch
     flash_bwd_checks(device)
     per_step = train_full_width(device)
@@ -4975,7 +5150,262 @@ def train_phase(device):
     torch.cuda.empty_cache()
     _say("train", arch=ENCDEC_ARCH,
          seconds=f"{time.perf_counter() - t0:.1f}")
+    rows += train_ssm(device)
     return rows
+
+
+# ----------------------------------------------- one-card decode cells --
+
+# phase 12: the reference's decode cells that fit one card (PERF.md's
+# dry-run table), each model with bf16 weights from seed 0 and a cache
+# drawn from a seeded generator at the cell's declared shapes; the step
+# runs at pos = seq_len - 1, as the dry-run counts it, so every global
+# slot holds a position at or before it and each ring has wrapped
+DECODE_ARCHS = ("mamba2-130m", "hymba-1.5b")
+DECODE_CELLS = ("decode_32k", "long_500k")
+DECODE_LOGIT_TOL = 0.5            # phase 8's decode limit
+# a written k/v slot, the card's row 0 against the same step on the CPU:
+# bf16 ulps at the largest magnitude of that layer's slot
+SLOT_ULPS = 2
+CARD_BYTES = 80 * 2**30
+
+
+def _flat(tree, prefix=""):
+    """A nested dict as {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nest(flat):
+    """``_flat``'s inverse."""
+    out = {}
+    for path, v in flat.items():
+        *keys, leaf = path.split("/")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _slot_ulps(got, want, layers: int):
+    """|got - want| in bf16 ulps: at the largest magnitude of each layer's
+    slot (what ``SLOT_ULPS`` holds), and element by element at each
+    element's own magnitude (printed)."""
+    import torch
+    g = got.float().reshape(layers, -1)
+    w = want.float().reshape(layers, -1)
+    err = (g - w).abs()
+    half_eps = torch.finfo(torch.bfloat16).eps / 2
+
+    def ulp(mag):
+        _, ex = torch.frexp(mag)
+        return torch.ldexp(torch.full_like(mag, half_eps), ex)
+    top = torch.maximum(g.abs(), w.abs())
+    at_top = float((err / ulp(top.amax(dim=1, keepdim=True))).max())
+    own = float((err / torch.clamp(ulp(top), min=2.0 ** -133)).max())
+    return at_top, own
+
+
+class BlockInputs:
+    """Records the input of every block of a decode step, batch row 0 as
+    a CPU copy, in call order (``replay=None``), or feeds each block of a
+    step the recorded input in its place (``replay``: a list from a
+    recording run).  It wraps ``models.transformer.block_apply``, the
+    name ``run_decoder`` calls."""
+
+    def __init__(self, replay=None):
+        self.seen, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._inner = inner = transformer.block_apply
+
+        def wrapped(cfg, tp, p, x, **kw):
+            if self.replay is None:
+                self.seen.append(x[:1].to("cpu", copy=True))
+            else:
+                x = self.replay[len(self.seen)].to(x.device, x.dtype)
+                self.seen.append(None)
+            return inner(cfg, tp, p, x, **kw)
+        transformer.block_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.block_apply = self._inner
+
+
+def decode_cell(model, params, cpu_model, cpu_params, cell, device):
+    """Phase 12, one cell: ``model`` at ``cell``'s batch and length
+    (``configs.base.SHAPES_BY_NAME``), a cache of exactly
+    ``model.input_specs(shape)["cache"]``'s shapes and dtypes drawn from a
+    seeded generator on the card, and one ``decode_step`` at pos =
+    seq_len - 1.  Checks: the cache is written in place; every slot the
+    step does not write is bit for bit what it was (a copy of the cache
+    taken before the step: each layer's k and v but slot pos % T, and
+    each conv ring shifted by one), and every leaf the step writes moved;
+    batch row 0's cache, copied to the CPU before the step, stepped there
+    by ``cpu_model``: the logits within ``DECODE_LOGIT_TOL`` of the
+    card's row 0; then again with each block fed the card's own input to
+    that block (``BlockInputs``), so each layer's written k/v slot is that
+    layer's arithmetic alone, without the rounding drift of the layers
+    below it: within ``SLOT_ULPS`` (``_slot_ulps``; the free-running
+    step's slot gap is printed beside it); then one profiled step
+    (``profile_step``: host and kernel ms, the dry-run's count beside it,
+    held to its firm bounds and its bytes), its kernel ms by kind
+    (``_by_kind``) and its peak memory, under 80 GiB."""
+    import torch
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    cfg = model.cfg
+    shape = SHAPES_BY_NAME[cell]
+    B, S = shape.global_batch, shape.seq_len
+    pos = S - 1
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(30)
+    flat = {p: torch.randn(m.shape, generator=g, device=device,
+                           dtype=m.dtype)
+            for p, m in _flat(model.input_specs(shape)["cache"]).items()}
+    axes = {p: d[1] for p, d in _flat(model.cache_decls(B, S)).items()}
+    cache = _nest(flat)
+    cache_bytes = _cache_bytes(cache)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                        device=device, dtype=torch.int32)
+    row0 = {p: t.narrow(axes[p].index("batch"), 0, 1).to("cpu", copy=True)
+            for p, t in flat.items()}
+    before = {p: t.clone() for p, t in flat.items()}
+    torch.cuda.synchronize()
+    with BlockInputs() as inputs:
+        logits, out = model.decode_step(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    if {p: t.data_ptr() for p, t in _flat(out).items()} != \
+            {p: t.data_ptr() for p, t in flat.items()}:
+        raise AssertionError(f"{cfg.name} {cell}: the step did not write "
+                             f"its cache in place")
+
+    # ---- only the step's slots moved
+    held, slots, still = 0, {}, []
+    for p, new in flat.items():
+        old, ax = before[p], axes[p]
+        if "kv_seq" in ax:
+            d = ax.index("kv_seq")
+            T = new.shape[d]
+            i = pos % T
+            same = [(new.narrow(d, 0, i), old.narrow(d, 0, i)),
+                    (new.narrow(d, i + 1, T - i - 1),
+                     old.narrow(d, i + 1, T - i - 1))]
+            slots[p] = new.narrow(d, i, 1).narrow(ax.index("batch"), 0, 1)\
+                .cpu()
+        elif "conv" in ax:
+            d = ax.index("conv")
+            K = new.shape[d]
+            same = [(new.narrow(d, 0, K - 1), old.narrow(d, 1, K - 1))]
+        else:                                  # the SSM state moves whole
+            same = []
+        for a, b in same:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{cfg.name} {cell}: {p} changed "
+                                     f"outside the step's slots")
+            held += a.numel() * a.element_size()
+        if torch.equal(new, old):
+            still.append(p)
+    del before
+    if still:
+        raise AssertionError(f"{cfg.name} {cell}: the step left {still} "
+                             f"as they were")
+
+    # ---- row 0, card against CPU: free-running, then block by block
+    t1 = time.perf_counter()
+    copy = lambda: _nest({p: t.clone() for p, t in row0.items()})
+    lc, cout = cpu_model.decode_step(cpu_params, copy(), tok[:1].cpu(), pos)
+    with BlockInputs(replay=inputs.seen) as forced:
+        _, fout = cpu_model.decode_step(cpu_params, copy(), tok[:1].cpu(),
+                                        pos)
+    cpu_s = time.perf_counter() - t1
+    if len(forced.seen) != len(inputs.seen):
+        raise AssertionError(f"{cfg.name} {cell}: {len(forced.seen)} blocks "
+                             f"on the CPU, {len(inputs.seen)} on the card")
+    del row0, inputs
+    gap = float((logits[:1].float().cpu() - lc.float()).abs().max())
+    ulps = {"forced": [0.0, 0.0], "free": [0.0, 0.0]}
+    for way, ref in (("forced", _flat(fout)), ("free", _flat(cout))):
+        for p, got in slots.items():
+            ax = axes[p]
+            d = ax.index("kv_seq")
+            want = ref[p].narrow(d, pos % ref[p].shape[d], 1)
+            a, o = _slot_ulps(got, want, got.shape[0] if ax[0] == "layers"
+                              else 1)
+            ulps[way] = [max(ulps[way][0], a), max(ulps[way][1], o)]
+    cflat = _flat(cout)
+    state = [p for p in cflat if p.endswith("/state")]
+    state_gap = max(float((flat[p].narrow(axes[p].index("batch"), 0, 1)
+                           .cpu() - cflat[p]).norm() / cflat[p].norm())
+                    for p in state)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(lc).all())
+    at_top = ulps["forced"][0]
+    _say("check", decode=cell, arch=cfg.name, batch=B, seq=S, pos=pos,
+         cache_bytes=cache_bytes, unwritten_bytes_held=held,
+         written_kv_leaves=len(slots), max_abs_logit_gap=f"{gap:.4g}",
+         limit=DECODE_LOGIT_TOL, slot_ulps_at_top=f"{at_top:.3g}",
+         slot_ulps_limit=SLOT_ULPS,
+         slot_max_elem_ulps=f"{ulps['forced'][1]:.3g}",
+         free_slot_ulps_at_top=f"{ulps['free'][0]:.3g}",
+         free_slot_max_elem_ulps=f"{ulps['free'][1]:.3g}",
+         state_rel_gap=f"{state_gap:.3g}", cpu_s=f"{cpu_s:.1f}")
+    if not finite or gap >= DECODE_LOGIT_TOL or at_top > SLOT_ULPS:
+        raise AssertionError(f"{cfg.name} {cell}: card vs CPU logits "
+                             f"{gap:.4g} (finite {finite}), written slots "
+                             f"{at_top:.3g} ulps")
+    del cout, fout, cflat, lc, slots
+
+    # ---- one profiled step, the dry-run beside it
+    done = profile_step(model, params, f"decode step {cell}",
+                        lambda: model.decode_step(params, cache, tok, pos),
+                        "decode", B, S, cache_bytes, cfg.name)
+    if done is None:
+        raise AssertionError(f"{cfg.name} {cell}: the traced step held no "
+                             f"kernel")
+    rec, dev_ms, peak, kernels = done
+    estimate = (rec["arg_bytes"] + rec["peak_bytes"]) / 2**30
+    _say("decode", arch=cfg.name, cell=cell, batch=B, seq=S,
+         cache_gb=f"{cache_bytes / 1e9:.3f}", kernel_ms=f"{dev_ms:.4f}",
+         by_kind=json.dumps(_by_kind(kernels), separators=(",", ":")),
+         bytes_floor_ms=f"{rec['bytes_floor_s'] * 1e3:.4f}",
+         max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+         peak_estimate_gib=f"{estimate:.3f}",
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"{cfg.name} {cell}: peak {peak} bytes, not "
+                             f"under 80 GiB")
+
+
+def decode_phase(device) -> None:
+    """Phase 12: ``DECODE_ARCHS`` x ``DECODE_CELLS`` (``decode_cell``),
+    each model built once on the card and once on the CPU (the same bf16
+    weights, copied), and freed before the next."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import tree_map
+    for arch in DECODE_ARCHS:
+        t0 = time.perf_counter()
+        cfg, model, params, _ = _lm_model(arch, device)
+        cpu_model = build_model(cfg, tp=1, device="cpu")
+        cpu_params = cpu_model.load_params(tree_map(lambda t: t.cpu(),
+                                                    params))
+        for cell in DECODE_CELLS:
+            decode_cell(model, params, cpu_model, cpu_params, cell, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model, params, cpu_model, cpu_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        _say("decode", arch=arch, section=12,
+             seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def _host_ms(fn, reps: int = 3) -> float:
@@ -5089,6 +5519,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += train_phase(device)
     torch.cuda.synchronize()
+    gc.collect()                         # the last training state goes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    decode_phase(device)
+    _say("decode", section=12, seconds=f"{time.perf_counter() - t0:.1f}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

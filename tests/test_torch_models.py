@@ -63,8 +63,10 @@ MOE_INT8 = ("olmoe-1b-7b", "qwen3-4b:kv_quant")
 SSM = ("mamba2-130m", "hymba-1.5b")
 # the decode runs held bit for bit: every dense config, the MoE family,
 # qwen3-4b with the int8 KV cache ("arch:kv_quant"), the SSM and hybrid
-# families
-EXACT = DENSE + MOE_INT8 + SSM
+# families, and those two with the int8 cache (hymba's on its windowed
+# ring too; mamba2 has no attention, so its flag must change nothing)
+EXACT = DENSE + MOE_INT8 + SSM + ("hymba-1.5b:kv_quant",
+                                  "mamba2-130m:kv_quant")
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
