@@ -191,7 +191,17 @@ Phases, one line each (any failure raises and the script exits non-zero):
    just after (all three query kernels must launch, Q4's
    rle_grouped_agg once a run), and seg_preagg held against its plain
    version on the inputs of each segmented shape (JSON rows named
-   ``seg-Q..``).  Then tests/test_segmented_exec.py's star layout at
+   ``seg-Q..``).  The same queries again, with a fresh block cache, on
+   4 shards over 4 placements (``make_query_mesh(4, devices=[cuda:i %
+   device_count() ...])``: one card's placements, or four cards): each
+   equal to the oracle and to the one-placement run (ints exactly, f32
+   within rtol 1e-5), every dense query's ``seg_preagg`` traced from its
+   keys to each placement's shards on that placement's card
+   (``PlacementCapture``), ``[segmented] ... layout=placements
+   placements= cards= cross_card_bytes= between_placements_bytes=``
+   lines, ``[launches] path=segmented-placements`` and a
+   ``[placements]`` line with the launches by placement.  Then
+   tests/test_segmented_exec.py's star layout at
    1500x (6,000,000 sales, 450,000 customer, 60,000 supplier, 3,000,000
    parts, 30 promo rows; 4 nodes, K=1): the four join templates must
    take "local", "local", "resegment", "broadcast" and match a numpy
@@ -199,11 +209,15 @@ Phases, one line each (any failure raises and the script exits non-zero):
    slabs evicted, buddies serving), after a 10,000-row trickle while it
    is down, and after ``rejoin_node`` and ``recover_node``
    (``[star]``, ``[fail]``, ``[recover]`` lines, ``[launches]
-   path=segmented-star`` summing the segmented runs).  Last the Database
+   path=segmented-star`` summing the segmented runs); then the four
+   templates on the 4 placements, each also equal to the recovered
+   one-placement run, ``seg_preagg`` on every placement.  Last the Database
    Designer over two star queries, ``create_projection(populate=True)``
    of the first projection it proposes, and the query the planner routes
    to it against the oracle (``[design]``).  ``[step]`` lines give each
-   step's seconds.
+   step's seconds.  ``python3 chip_smoke.py --segmented-only`` builds the
+   kernels and runs phase 9 alone (on the SF1 database without the
+   trickle), for a machine with several cards.
 10. serving (``serving_phase``; it runs after phase 5 and before phase
    6) through ``db.serve()`` on the main database with a fresh 4 GiB
    block cache: tests/test_serving.py's corpus re-keyed onto lineitem
@@ -3173,13 +3187,16 @@ def star_check(dim, res, data) -> None:
         raise AssertionError(f"star {dim}.mx differs")
 
 
-def _star_round(db, data, device, step, totals, profile=False):
+def _star_round(db, data, device, step, totals, profile=False,
+                fields=dict):
     """The four join templates cold then warm on the mesh (first, so the
     cold run decodes), each equal to the oracle and to the warm
     mesh-detached run after it, each with the exchange the planner must
     pick; their launches add to ``totals``.  ``profile`` adds a profiled
-    warm run of each."""
+    warm run of each; ``fields()`` adds to each line.  Returns each
+    template's warm result on the mesh."""
     mesh = db.mesh
+    warm = {}
     for dim in STAR_JOINS:
         got = []
         qb = star_query(db, dim)
@@ -3204,7 +3221,9 @@ def _star_round(db, data, device, step, totals, profile=False):
             raise AssertionError(f"star {dim}: exchange {exch}, expected "
                                  f"{STAR_JOINS[dim][2]}")
         _say_seg("star", dim, runs, single_ms, db, step=step,
-                 oracle="match", single="match")
+                 oracle="match", single="match", **fields())
+        warm[dim] = got[-1]
+    return warm
 
 
 def _same_star(dim, a, b) -> None:
@@ -3218,17 +3237,219 @@ def _same_star(dim, a, b) -> None:
             raise AssertionError(f"star {dim}.{c}: segmented != single")
 
 
+def _placed_devices(device) -> list:
+    """Phase 9's placements: SEG_SHARDS of them over the visible cards in
+    turn (cuda:i % device_count()), so all on one card where there is one."""
+    import torch
+    if not _is_cuda(device):
+        return ["cpu"] * SEG_SHARDS
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(SEG_SHARDS)]
+
+
+class PlacementCapture:
+    """Records the ``seg_preagg`` calls of the segmented path's shard-local
+    pre-aggregation (keys and domain; the single-node runs' calls are left
+    out) so that each can be traced, after the runs and with no sync
+    inside them, to the placement whose shards it served: its keys are
+    ``global shard * domain + key`` over ``n_shards * domain``."""
+
+    def __init__(self):
+        self.calls = []
+        self._inner = self._preagg = None
+        self._depth = 0
+
+    def __enter__(self):
+        from repro_torch.engine import segmented
+        from repro_torch.kernels import ops
+        self._inner = inner = ops.seg_preagg
+        self._preagg = preagg = segmented._shard_preagg
+
+        def wrapped(keys, valid, values, domain, aggs):
+            if self._depth:
+                self.calls.append((keys, int(domain)))
+            return inner(keys, valid, values, domain, aggs)
+
+        def shard_preagg(*a, **kw):
+            self._depth += 1
+            try:
+                return preagg(*a, **kw)
+            finally:
+                self._depth -= 1
+        ops.seg_preagg = wrapped
+        segmented._shard_preagg = shard_preagg
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.engine import segmented
+        from repro_torch.kernels import ops
+        ops.seg_preagg = self._inner
+        segmented._shard_preagg = self._preagg
+
+    def placements(self, mesh, start: int = 0) -> list:
+        """The placement of each call from ``start`` on; fails where a
+        call's keys span two placements or lie on another device than
+        their placement's."""
+        k = mesh.shards_per_placement
+        out = []
+        for keys, domain in self.calls[start:]:
+            per = domain // mesh.n_shards
+            lo, hi = int(keys.min()) // per, int(keys.max()) // per
+            p = lo // k
+            if hi // k != p or keys.device != mesh.devices[p]:
+                raise AssertionError(
+                    f"seg_preagg call over shards {lo}..{hi} on "
+                    f"{keys.device}: not one placement's ({k} shards a "
+                    f"placement, {mesh.devices})")
+            out.append(p)
+        return out
+
+
+def _same_placed(what, a, b, key) -> None:
+    """A run on placements against the single-placement run: the same
+    groups, ints and counts equal, f32 within rtol 1e-5 (phase 10's
+    limit)."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: columns {sorted(a)} != {sorted(b)}")
+    oa = ob = slice(None)
+    if key is not None:
+        oa = np.argsort(np.asarray(a[key]), kind="stable")
+        ob = np.argsort(np.asarray(b[key]), kind="stable")
+    for c in a:
+        x, y = np.asarray(a[c])[oa], np.asarray(b[c])[ob]
+        same = np.array_equal(x, y) if x.dtype.kind in "iub" else \
+            np.allclose(x, y, rtol=1e-5, atol=0)
+        if not same:
+            raise AssertionError(f"{what}.{c}: placements != one placement")
+
+
+def _placement_fields(mesh, moved) -> dict:
+    return {"layout": "placements", "placements": len(mesh.devices),
+            "cards": len(mesh.cards()),
+            "cross_card_bytes": moved["cross_card"],
+            "between_placements_bytes": moved["between_placements"]}
+
+
+def placements_sf1(db, queries, fact, dim, device, seg_single, single_ms):
+    """Phase 9's SF1 queries again on SEG_SHARDS shards over as many
+    placements (``_placed_devices``), with a fresh block cache: cold then
+    warm, each equal to the oracle and to the single-placement run, every
+    dense pre-aggregation launched on every placement's card."""
+    from repro_torch.core.block_cache import BlockCache
+    from repro_torch.distributed import make_query_mesh
+    from repro_torch.engine import exchange
+    from repro_torch.kernels import ops
+    mesh = make_query_mesh(SEG_SHARDS, devices=_placed_devices(device))
+    t_step = time.perf_counter()
+    saved = db.block_cache
+    db.block_cache = BlockCache(SEG_CACHE)
+    db.collect_stage_timing = True
+    db.attach_mesh(mesh)
+    total = {"between_placements": 0, "cross_card": 0}
+    by_placement = [0] * len(mesh.devices)
+    try:
+        with PlacementCapture() as cap:
+            ops.reset_launch_counts()
+            for name, qb in queries.items():
+                exchange.reset_transfer_bytes()
+                start = len(cap.calls)
+                runs = _seg_runs(db, name, qb, device,
+                                 lambda r, name=name: (
+                                     check(name, r, fact, dim),
+                                     _same_placed(name, r, seg_single[name],
+                                                  KEY_COL[name])),
+                                 "sf1-placed")
+                moved = exchange.transfer_bytes()
+                seen = cap.placements(mesh, start)
+                if seen and sorted(set(seen)) != list(range(len(by_placement))):
+                    raise AssertionError(f"placed {name}: seg_preagg ran on "
+                                         f"placements {sorted(set(seen))}")
+                for p in seen:
+                    by_placement[p] += 1
+                for k in total:
+                    total[k] += moved[k]
+                _say_seg("segmented", name, runs, single_ms[name], db,
+                         preagg_calls=len(seen),
+                         **_placement_fields(mesh, moved), oracle="match",
+                         single_placement="match")
+            launches = ops.launch_counts()
+    finally:
+        db.detach_mesh()
+        db.block_cache = saved
+        db.collect_stage_timing = False
+    _say("launches", path="segmented-placements",
+         **{k: launches[k] for k in MAIN_KERNELS})
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"placed segmented path never launched: "
+                             f"{missing}")
+    if min(by_placement) == 0:
+        raise AssertionError(f"seg_preagg by placement: {by_placement}")
+    _say("placements", path="sf1", devices=",".join(map(str, mesh.devices)),
+         seg_preagg_by_placement=json.dumps(by_placement),
+         **_placement_fields(mesh, total))
+    _say("step", path="segmented", name="sf1_placements",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+
+
+def placements_star(star, data, device, one_placement):
+    """The star's four join templates on SEG_SHARDS placements, cold then
+    warm: each equal to the oracle, the mesh-detached run and
+    ``one_placement`` (the same templates on one placement), seg_preagg on
+    every placement's card."""
+    from repro_torch.distributed import make_query_mesh
+    from repro_torch.engine import exchange
+    from repro_torch.kernels import ops
+    t_step = time.perf_counter()
+    mesh = make_query_mesh(SEG_SHARDS, devices=_placed_devices(device))
+    star.detach_mesh()
+    star.attach_mesh(mesh)
+    totals = {k: 0 for k in MAIN_KERNELS}
+    moved = {"between_placements": 0, "cross_card": 0}
+
+    def fields():
+        """One template's bytes (cold and warm runs), added to ``moved``."""
+        got = exchange.transfer_bytes()
+        exchange.reset_transfer_bytes()
+        for k in moved:
+            moved[k] += got[k]
+        return _placement_fields(mesh, got)
+
+    exchange.reset_transfer_bytes()
+    with PlacementCapture() as cap:
+        ops.reset_launch_counts()
+        got = _star_round(star, data, device, "placements", totals,
+                          fields=fields)
+        launches = ops.launch_counts()
+    seen = cap.placements(mesh)
+    by_placement = [seen.count(p) for p in range(len(mesh.devices))]
+    for dim, res in got.items():
+        _same_placed(f"star {dim}", res, one_placement[dim],
+                     STAR_JOINS[dim][1])
+    _say("launches", path="segmented-star-placements",
+         **{k: launches[k] for k in MAIN_KERNELS})
+    if min(by_placement) == 0:
+        raise AssertionError(f"star seg_preagg by placement: {by_placement}")
+    _say("placements", path="star", devices=",".join(map(str, mesh.devices)),
+         seg_preagg_by_placement=json.dumps(by_placement),
+         single_placement="match", **_placement_fields(mesh, moved))
+    _say("step", path="segmented", name="star_placements",
+         seconds=f"{time.perf_counter() - t_step:.1f}")
+
+
 def segmented_phase(db, fact, dim, device):
     """Phase 9: segmented execution on SEG_SHARDS logical shards of the
     card.  (1) Q1-Q7 and Qorders on the main SF1 database, cold (a fresh
     block cache: decodes and slab builds) then warm, each equal to the
     oracle and to its mesh-detached run; seg_preagg's inputs captured and
-    held against its plain version per shape.  (2) The star layout of
+    held against its plain version per shape; then again on SEG_SHARDS
+    placements (``placements_sf1``).  (2) The star layout of
     tests/test_segmented_exec.py at STAR_SCALE x: the four join templates
     (local, local, resegment, broadcast) against a numpy oracle and the
     mesh-detached run; then a node fails (its slabs are evicted, buddies
     serve), a trickle lands while it is down, it rejoins and recovers, and
-    every step is checked again.  (3) The Database Designer on the star:
+    every step is checked again, then on SEG_SHARDS placements
+    (``placements_star``).  (3) The Database Designer on the star:
     ``design`` over two star queries, ``create_projection(populate=True)``
     of the first projection it proposes, and a query the planner routes
     to it against the oracle.  Returns seg_preagg's JSON rows."""
@@ -3252,6 +3473,7 @@ def segmented_phase(db, fact, dim, device):
     db.block_cache = BlockCache(SEG_CACHE)    # cold runs decode and slab
     db.collect_stage_timing = True
     db.attach_mesh(make_query_mesh(SEG_SHARDS, device=device))
+    seg_single = {}
     try:
         warm = {}
         with SegCapture() as capture:
@@ -3261,7 +3483,8 @@ def segmented_phase(db, fact, dim, device):
                 runs = _seg_runs(db, name, qb, device,
                                  lambda r, name=name: (
                                      check(name, r, fact, dim),
-                                     _same_answer(name, r, single[name])),
+                                     _same_answer(name, r, single[name]),
+                                     seg_single.__setitem__(name, r)),
                                  "sf1")
                 if name == "Q4" and any(
                         r[1]["rle_grouped_agg"] != 1 for r in runs):
@@ -3285,6 +3508,7 @@ def segmented_phase(db, fact, dim, device):
         db.collect_stage_timing = False
     _say("step", path="segmented", name="sf1",
          seconds=f"{time.perf_counter() - t_step:.1f}")
+    placements_sf1(db, queries, fact, dim, device, seg_single, single_ms)
 
     # ---- (2) the star layout: three exchanges, failure and recovery ----
     t_step = time.perf_counter()
@@ -3325,13 +3549,14 @@ def segmented_phase(db, fact, dim, device):
     _say("recover", node=STAR_FAILED, rejoin_epoch=e_join,
          replayed=json.dumps(replayed, separators=(",", ":")),
          last_recovery=json.dumps(rec, separators=(",", ":"), default=str))
-    _star_round(star, data, device, "recovered", totals)
+    recovered = _star_round(star, data, device, "recovered", totals)
     _say("launches", path="segmented-star", **totals)
     if totals["seg_preagg"] == 0:
         raise AssertionError("the star's segmented runs never launched "
                              "seg_preagg")
     _say("step", path="segmented", name="failure_cycle",
          seconds=f"{time.perf_counter() - t_step:.1f}")
+    placements_star(star, data, device, recovered)
 
     # ---- (3) the Database Designer ----
     t_step = time.perf_counter()
@@ -5432,6 +5657,11 @@ def _leaves(tree):
 
 def main() -> int:
     import torch
+    args = sys.argv[1:]
+    if args not in ([], ["--segmented-only"]):
+        print(f"chip_smoke: unknown arguments {args}; the only one is "
+              f"--segmented-only (phase 9 alone)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5467,6 +5697,17 @@ def main() -> int:
          seconds=f"{time.perf_counter() - t0:.1f}",
          lineitem_encodings=json.dumps(encs, separators=(",", ":")),
          orders_encodings=json.dumps(oenc, separators=(",", ":")))
+
+    if args:
+        # phase 9 alone (on a machine with several cards, its placements
+        # are cards): the SF1 database without the trickle, then the star
+        rows = segmented_phase(db, fact, dim, device)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     decode_checks(db, device)
     segment_checks(device)

@@ -21,7 +21,8 @@ default; asking for CUDA without a GPU raises), ``query()`` returns the
 port's QueryBuilder, and ``serve()`` returns the port's QueryService
 (engine/serving.py), whose pipelined drain waits on CUDA events.
 ``attach_mesh()`` takes
-a mesh of the port (distributed/mesh.py): logical shards on one device.
+a mesh of the port (distributed/mesh.py): shards in placements, one device
+each.
 """
 from __future__ import annotations
 
@@ -230,17 +231,22 @@ class VerticaDB:
 
     def attach_mesh(self, mesh=None, axis: str = "data"):
         """Route aggregate queries through the segmented executor
-        (engine/segmented.py).  With no argument, builds a query mesh of
-        one logical shard per visible device of ``self.device``'s kind
-        (distributed/mesh.py).  Tuple-to-shard ownership follows each
-        projection's SegmentationSpec hash ring
-        (core/segmentation.shard_of)."""
+        (engine/segmented.py).  With no argument, builds a query mesh
+        (distributed/mesh.py) of one shard per visible card, each on its
+        own card, for a CUDA database, and of one shard for a CPU one.
+        Every placement of ``mesh`` must be a device of ``self.device``'s
+        kind.  Tuple-to-shard ownership follows each projection's
+        SegmentationSpec hash ring (core/segmentation.shard_of)."""
         if mesh is None:
             from ..distributed.mesh import make_query_mesh
-            mesh = make_query_mesh(axis=axis, device=self.device)
-        elif mesh.device.type != self.device.type:
-            raise ValueError(f"attach_mesh: a mesh on {mesh.device} for a "
-                             f"database on {self.device}")
+            mesh = make_query_mesh(axis=axis) \
+                if self.device.type == "cuda" \
+                else make_query_mesh(axis=axis, device=self.device)
+        else:
+            other = [d for d in mesh.devices if d.type != self.device.type]
+            if other:
+                raise ValueError(f"attach_mesh: a mesh on {other[0]} for "
+                                 f"a database on {self.device}")
         self.mesh, self.mesh_axis = mesh, axis
         return mesh
 

@@ -582,27 +582,35 @@ def _rebuild(tree, arrays: List[np.ndarray]):
 
 
 def to_host(tree):
-    """Fetch device tensors in ONE device->host copy: their bytes are
-    concatenated on the device, copied once, and split back into numpy
-    arrays of their own dtype and shape (a bool mask travels as its
-    uint8 bytes).  ``tree`` is a dict of tensors, or a flight: a list
-    whose entries are a dict of tensors, a ``(bool mask, dict)`` tuple
-    or None; the result has the same structure.  The copy runs on the
-    current stream, so it waits for every launch queued there before
-    it."""
+    """Fetch device tensors in ONE device->host copy per device: their
+    bytes are concatenated on the device, copied once, and split back
+    into numpy arrays of their own dtype and shape (a bool mask travels
+    as its uint8 bytes).  ``tree`` is a dict of tensors, or a flight: a
+    list whose entries are a dict of tensors, a ``(bool mask, dict)``
+    tuple or None; the result has the same structure.  Each copy runs on
+    its device's current stream, so it waits for every launch queued
+    there before it."""
     ts = _leaves(tree)
-    if not ts or ts[0].device.type == "cpu":
-        return _rebuild(tree, [t.contiguous().numpy() for t in ts])
-    buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
-                     for t in ts]).cpu().numpy()
-    arrays, off = [], 0
-    for t in ts:
-        nbytes = t.numel() * t.element_size()
-        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        # copy: a slice at an odd offset would be an unaligned view
-        arrays.append(buf[off:off + nbytes].view(dt).reshape(t.shape)
-                      .copy())
-        off += nbytes
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, t in enumerate(ts):
+        by_dev.setdefault(t.device, []).append(i)
+    arrays: List[Optional[np.ndarray]] = [None] * len(ts)
+    for dev, idx in by_dev.items():
+        if dev.type == "cpu":
+            for i in idx:
+                arrays[i] = ts[i].contiguous().numpy()
+            continue
+        buf = torch.cat([ts[i].contiguous().reshape(-1).view(torch.uint8)
+                         for i in idx]).cpu().numpy()
+        off = 0
+        for i in idx:
+            t = ts[i]
+            nbytes = t.numel() * t.element_size()
+            dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+            # copy: a slice at an odd offset would be an unaligned view
+            arrays[i] = buf[off:off + nbytes].view(dt).reshape(t.shape) \
+                .copy()
+            off += nbytes
     return _rebuild(tree, arrays)
 
 

@@ -8,12 +8,16 @@ segment scannable when a node is down -- the planner's ``plan.sources``
 routing already walks buddies, so ``fail_node()`` failover is transparent
 here too.
 
-The port's mesh is ``n_shards`` logical shards on one device
-(distributed/mesh.py): every sharded array is a ``[n_shards, per]``
-tensor, and each of the reference's ``shard_map``-ped programs is a
-function over that leading shard dimension -- a shard's rows, its build
-partition and its partials stay its own, so placement faults show as they
-would across devices.
+The port's mesh splits its shards into placements, one device each
+(distributed/mesh.py): every sharded array is one ``[k, per]`` tensor per
+placement, on that placement's device, and each of the reference's
+``shard_map``-ped programs runs once per placement over its leading shard
+dimension, with global shard ids -- a shard's rows, its build partition
+and its partials live on its placement's device, and only the exchanges
+(engine/exchange.py) move tuples between placements.  One controller
+process plans, caches and merges, as the reference's jax controller does
+over its ``Mesh``; a mesh of one placement holds every shard in one
+``[n_shards, per]`` tensor.
 
 Execution shape (one query):
 
@@ -25,12 +29,13 @@ Execution shape (one query):
      device blocks of every source container are concatenated on the
      device (``executor.snapshot_scan_device``; packed columns launch
      ``bitunpack``), ring-hashed with the device twins
-     ``hash_columns_torch`` / ``shard_of_torch``, moved to their owning
-     shard by one ``exchange.resegment`` sized from an exact destination
-     histogram, then compacted (valid rows first) and annotated with
-     per-512-row-block min/max/count SMAs -- the columns never
-     round-trip through the host.  Trickle-loaded WOS rows live in
-     separate per-store device buffers (``KIND_WOS``) built at commit time
+     ``hash_columns_torch`` / ``shard_of_torch`` on the database's device,
+     sent to their owning shard's placement by one exchange sized from an
+     exact destination histogram, then compacted (valid rows first) and
+     annotated with per-512-row-block min/max/count SMAs on each
+     placement -- the columns never round-trip through the host.
+     Trickle-loaded WOS rows live in separate per-store device buffers
+     (``KIND_WOS``, the placements' blocks) built at commit time
      (``prewarm_wos_buffer``) and keyed by ``WOS.version``; a query only
      uploads the per-row visibility mask for its epoch and appends them
      shard-locally.
@@ -38,17 +43,19 @@ Execution shape (one query):
      slab's block SMAs select the surviving 512-row blocks; each shard
      gathers just those, at the width of the fullest shard.
   3. **Stage programs** (one plan-cached closure per resegment stage):
-     ``exchange.resegment_local`` (Send/Recv) with the stage's hash joins,
-     each shard probing its own build partition, and -- in the final
-     stage -- derived exprs, the deferred predicate, mixed-radix key
+     ``exchange.resegment_blocks`` (Send/Recv) with the stage's hash
+     joins, each shard probing its own build partition, and -- in the
+     final stage -- derived exprs, the deferred predicate, mixed-radix key
      packing and the shard-local pre-aggregation: ONE ``seg_preagg``
-     launch over every shard, with keys ``shard * domain + key`` over a
-     domain of ``n_shards * domain`` (one launch per shard past the int32
-     key lane), sort-based partials past the dense limit.  Exchange
-     overflow reports are checked once after the final stage, so no host
-     sync splits a stage chain.
-  4. **Final merge** (host, small): partial counts/sums add, min/max
-     combine, avg = merged sum / merged count; packed keys unpack.
+     launch per placement over its shards, with keys ``shard * domain +
+     key`` (global shard ids) over a domain of ``n_shards * domain`` (one
+     launch per shard past the int32 key lane), sort-based partials past
+     the dense limit.  Exchange overflow reports are checked once after
+     the final stage, so no host sync splits a stage chain.
+  4. **Final merge** (host, small): the placements' partials come back in
+     one copy per device and concatenate in shard order; partial
+     counts/sums add, min/max combine, avg = merged sum / merged count;
+     packed keys unpack.
 
 The plan-cache signature includes the mesh identity, the projection's
 segmentation, the per-join exchange ops and the pack radices -- two mesh
@@ -93,15 +100,56 @@ def _round_up(n: int, m: int = _PAD_MULTIPLE) -> int:
     return -(-max(int(n), 1) // m) * m
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
-def _shard_ids(n_shards: int, device) -> torch.Tensor:
-    """``[n_shards, 1]`` int32 shard index (the reference's axis_index)."""
-    return torch.arange(n_shards, dtype=torch.int32,
+def _shard_ids(n: int, device, first: int = 0) -> torch.Tensor:
+    """``[n, 1]`` int32 global shard index of a block of ``n`` shards
+    from ``first`` on (the reference's axis_index)."""
+    return torch.arange(first, first + n, dtype=torch.int32,
                         device=device).unsqueeze(1)
+
+
+def _upload(mesh, a: np.ndarray) -> List[torch.Tensor]:
+    """A host ``[n_shards, ...]`` array as its placements' blocks."""
+    k = mesh.shards_per_placement
+    return [to_device(a[lo:lo + k], dev) for lo, dev in mesh.placements()]
+
+
+def _replicate(mesh, a: np.ndarray) -> List[torch.Tensor]:
+    """One host array on every placement; placements on one device share
+    its copy."""
+    by_dev: Dict[torch.device, torch.Tensor] = {}
+    for dev in mesh.devices:
+        if dev not in by_dev:
+            by_dev[dev] = to_device(a, dev)
+    return [by_dev[dev] for dev in mesh.devices]
+
+
+def _blocks_bytes(blocks) -> int:
+    """Device bytes of a list of blocks, a tensor shared by placements
+    counted once."""
+    seen = {(t.device, t.data_ptr()): t.numel() * t.element_size()
+            for t in blocks}
+    return sum(seen.values())
+
+
+def _host_blocks(blocks: Sequence[Dict[str, torch.Tensor]],
+                 extra: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, np.ndarray]:
+    """The placements' per-shard tensors on the host, in one copy per
+    device: each name's blocks concatenated along the shard dimension,
+    and ``extra``'s tensors as they are."""
+    flat = {f"{p}|{n}": t for p, d in enumerate(blocks) for n, t in d.items()}
+    flat.update(extra or {})
+    host = to_host(flat)
+    out = {n: np.concatenate([host[f"{p}|{n}"] for p in range(len(blocks))])
+           for n in blocks[0]}
+    out.update({n: host[n] for n in extra or {}})
+    return out
 
 
 def _dest_hist(dest: torch.Tensor, n_shards: int,
@@ -165,13 +213,10 @@ def _slab_positions(shard: np.ndarray, n_shards: int):
 
 
 def _slab_bytes(slab: dict) -> int:
-    n = 0
-    for v in slab["cols"].values():
-        n += int(v.numel()) * v.element_size()
-    for v in slab["dests"].values():
-        n += int(v.numel()) * v.element_size()
-    n += int(slab["valid"].numel())
-    return n
+    """Device bytes of a slab: its blocks on every placement."""
+    blocks = [b for v in slab["cols"].values() for b in v]
+    blocks += [b for v in slab["dests"].values() for b in v]
+    return _blocks_bytes(blocks + list(slab["valid"]))
 
 
 def _shard_assignment(proj, cols_np: Dict[str, np.ndarray], n: int,
@@ -193,10 +238,11 @@ def _shard_assignment(proj, cols_np: Dict[str, np.ndarray], n: int,
 
 
 def _partition_to_slab(cols_np: Dict[str, np.ndarray], shard: np.ndarray,
-                       reseg_keys: Sequence[str], n_shards: int, device,
+                       reseg_keys: Sequence[str], mesh,
                        keep_layout: bool = False) -> Optional[dict]:
     """Pack host rows (already canonicalized) into a ``(n_shards, per)``
-    device slab from each row's shard assignment.  Used for the
+    slab from each row's shard assignment, uploaded as the placements'
+    blocks.  Used for the
     commit-time WOS buffers (the ROS slab builds on the device,
     ``_build_ros_slab_device``).  Zero rows return the empty-slab sentinel
     ``None``.  ``keep_layout`` additionally records the (order, shard,
@@ -205,6 +251,7 @@ def _partition_to_slab(cols_np: Dict[str, np.ndarray], shard: np.ndarray,
     n = len(shard)
     if n == 0:
         return None
+    n_shards = mesh.n_shards
     dests = {k: shard_of(hash_columns(cols_np[k]), n_shards)
              for k in reseg_keys}
 
@@ -222,7 +269,7 @@ def _partition_to_slab(cols_np: Dict[str, np.ndarray], shard: np.ndarray,
     for c, v in cols_np.items():
         buf = np.zeros((n_shards, per), v.dtype)
         buf[ss, pos] = v[order]
-        out_cols[c] = to_device(buf, device)
+        out_cols[c] = _upload(mesh, buf)
     vbuf = np.zeros((n_shards, per), bool)
     vbuf[ss, pos] = True
     out_dests = {}
@@ -232,9 +279,9 @@ def _partition_to_slab(cols_np: Dict[str, np.ndarray], shard: np.ndarray,
         dbuf = np.repeat(np.arange(n_shards, dtype=np.int32)[:, None],
                          per, axis=1)
         dbuf[ss, pos] = d[order]
-        out_dests[k] = to_device(dbuf, device)
+        out_dests[k] = _upload(mesh, dbuf)
 
-    out = {"cols": out_cols, "valid": to_device(vbuf, device),
+    out = {"cols": out_cols, "valid": _upload(mesh, vbuf),
            "per": int(per), "n_rows": n, "dests": out_dests,
            "real": {k: np.bincount(d, minlength=n_shards)
                     for k, d in dests.items()},
@@ -307,19 +354,20 @@ def _compact(cols: Dict[str, torch.Tensor], valid: torch.Tensor,
 
 def _build_ros_slab_device(db: VerticaDB, proj, plan, need: Sequence[str],
                            reseg_keys: Sequence[str], eff: int, mesh,
-                           axis: str, n_shards: int, stats
-                           ) -> Optional[dict]:
+                           stats) -> Optional[dict]:
     """Device-side ROS slab build: cached decoded device blocks -> ring
-    hash + destination histograms (B1) -> one resegment -> compaction +
-    block SMAs (B2).  The only host traffic is the visibility mask going
-    up and the small histograms/SMA stats coming back (one copy each) --
-    never the columns."""
+    hash + destination histograms (B1) on the database's device -> one
+    exchange that sends each row to its shard's placement -> compaction +
+    block SMAs (B2) on every placement.  The only host traffic is the
+    visibility mask going up and the small histograms/SMA stats coming
+    back (one copy each per device) -- never the columns."""
     got = fused_exec.snapshot_scan_device(db, plan, need, eff, stats)
     if got is None:
         return None
     cols_dev, valid_np = got
     if not bool(valid_np.any()):
         return None
+    n_shards = mesh.n_shards
     dev = db.device
     n_total = int(valid_np.shape[0])
     n_vis = int(valid_np.sum())
@@ -350,28 +398,35 @@ def _build_ros_slab_device(db: VerticaDB, proj, plan, need: Sequence[str],
     # capacity from the exact per-source histogram: overflow-free by
     # construction.  Block-multiple so the compacted layout reshapes.
     per_b = _round_up(int(bucket_np.max()), _SLAB_BLOCK)
-    payload = dict(cols_p)
-    payload["__v"] = valid_p.to(torch.int8)      # bools ride as bytes
-    for k in reseg_keys:
-        payload["__d:" + k] = dests_raw[k]
-    moved, slot_valid, overflow = exchange.resegment(
-        mesh, axis, payload, dest0, per_b * n_shards)
-    valid2 = (moved["__v"] != 0) & slot_valid
-    # invalid slots (pads AND rows deleted at this epoch) must point at
-    # their own shard so every later exchange leaves them in place --
-    # that invariant is what makes the staged capacity math exact
-    me = _shard_ids(n_shards, dev)
-    dests2 = {k: torch.where(valid2, moved["__d:" + k], me)
-              for k in reseg_keys}
+    names_p = list(need) + ["__v"] + ["__d:" + k for k in reseg_keys]
+    payload = [cols_p[c] for c in need] + [valid_p.to(torch.int8)] \
+        + [dests_raw[k] for k in reseg_keys]      # bools ride as bytes
+    # the snapshot is every source shard's, on the database's device: the
+    # Send goes from there to each shard's placement
+    moved, slot_valid, overflow = exchange.resegment_blocks(
+        mesh, per_b, [dest0], [tuple(payload)], sources=[None])
 
     per_out = _round_up(max(int(r0_np.max()), 1), _SLAB_BLOCK)
     names = tuple(sorted(need))
-    cols_c, valid_c, dests_c, bcount, bmins, bmaxs = _compact(
-        {c: moved[c] for c in need}, valid2, dests2, names, per_out,
-        _SLAB_BLOCK)
-    sma = to_host(dict({"count": bcount, "overflow": overflow},
-                       **{"min:" + c: v for c, v in bmins.items()},
-                       **{"max:" + c: v for c, v in bmaxs.items()}))
+    k = mesh.shards_per_placement
+    blocks, stats_b = [], []
+    for p, (lo, pdev) in enumerate(mesh.placements()):
+        mv = dict(zip(names_p, moved[p]))
+        valid2 = (mv["__v"] != 0) & slot_valid[p]
+        # invalid slots (pads AND rows deleted at this epoch) must point
+        # at their own shard so every later exchange leaves them in place
+        # -- that invariant is what makes the staged capacity math exact
+        me = _shard_ids(k, pdev, lo)
+        dests2 = {d: torch.where(valid2, mv["__d:" + d], me)
+                  for d in reseg_keys}
+        cols_c, valid_c, dests_c, bcount, bmins, bmaxs = _compact(
+            {c: mv[c] for c in need}, valid2, dests2, names, per_out,
+            _SLAB_BLOCK)
+        blocks.append((cols_c, valid_c, dests_c))
+        stats_b.append(dict({"count": bcount},
+                            **{"min:" + c: v for c, v in bmins.items()},
+                            **{"max:" + c: v for c, v in bmaxs.items()}))
+    sma = _host_blocks(stats_b, {"overflow": overflow})
     if int(sma["overflow"].sum()):
         return None                             # defensive; cannot happen
     bcount_np = sma["count"]
@@ -385,7 +440,9 @@ def _build_ros_slab_device(db: VerticaDB, proj, plan, need: Sequence[str],
                          int(bmaxs_np[c][sel].max()))
         else:
             bounds[c] = None
-    return {"cols": cols_c, "valid": valid_c, "dests": dests_c,
+    return {"cols": {c: [b[0][c] for b in blocks] for c in need},
+            "valid": [b[1] for b in blocks],
+            "dests": {d: [b[2][d] for b in blocks] for d in reseg_keys},
             "per": per_out, "n_rows": n_vis, "r0": r0_np,
             "real": real_np, "bounds": bounds, "sb": _SLAB_BLOCK,
             "bstats": (bcount_np, bmins_np, bmaxs_np)}
@@ -397,8 +454,7 @@ def _wos_buffer_key(store, mesh, axis: str) -> tuple:
     return ("wos", store.wos.version, _mesh_sig(mesh, axis))
 
 
-def _build_wos_buffer(db: VerticaDB, store, n_shards: int
-                      ) -> Optional[dict]:
+def _build_wos_buffer(store, mesh) -> Optional[dict]:
     """Per-store device WOS buffer: EVERY projection column (plus a
     resegment-destination column per column), partitioned by the
     commit-stamped ring values.  Query-shape independent, so it can be
@@ -411,24 +467,23 @@ def _build_wos_buffer(db: VerticaDB, store, n_shards: int
         return None
     cols_np = {c: _canon_np(np.asarray(data[c])) for c in proj.columns}
     ring = store.wos.ring_snapshot()
-    shard = _shard_assignment(proj, cols_np, n, n_shards, ring=ring)
-    return _partition_to_slab(cols_np, shard, tuple(proj.columns),
-                              n_shards, db.device, keep_layout=True)
+    shard = _shard_assignment(proj, cols_np, n, mesh.n_shards, ring=ring)
+    return _partition_to_slab(cols_np, shard, tuple(proj.columns), mesh,
+                              keep_layout=True)
 
 
-def _get_wos_buffer(db: VerticaDB, host: int, owner: str, mesh, axis: str,
-                    n_shards: int) -> Optional[dict]:
+def _get_wos_buffer(db: VerticaDB, host: int, owner: str, mesh, axis: str
+                    ) -> Optional[dict]:
     store = db.nodes[host].stores[owner]
     if store.wos.n_rows == 0:
         return None
     cache = getattr(db, "block_cache", None)
     if cache is None:
-        return _build_wos_buffer(db, store, n_shards)
+        return _build_wos_buffer(store, mesh)
     primary = store.proj.buddy_of or store.proj.name
     return cache.get_or_put(
         f"seg:{primary}", (_wos_buffer_key(store, mesh, axis), host, owner),
-        KIND_WOS, lambda: _build_wos_buffer(db, store, n_shards),
-        _slab_bytes)
+        KIND_WOS, lambda: _build_wos_buffer(store, mesh), _slab_bytes)
 
 
 def prewarm_wos_buffer(db: VerticaDB, host: int, owner: str) -> None:
@@ -444,12 +499,12 @@ def prewarm_wos_buffer(db: VerticaDB, host: int, owner: str) -> None:
     node = db.nodes[host]
     if not node.up or owner not in node.stores:
         return
-    _get_wos_buffer(db, host, owner, mesh, axis, int(mesh.shape[axis]))
+    _get_wos_buffer(db, host, owner, mesh, axis)
 
 
 def _wos_parts(db: VerticaDB, plan, need: Sequence[str],
-               reseg_keys: Sequence[str], as_of: int, mesh, axis: str,
-               n_shards: int) -> List[dict]:
+               reseg_keys: Sequence[str], as_of: int, mesh, axis: str
+               ) -> List[dict]:
     """Per-source WOS slab views at this query's snapshot: the cached
     device buffer's columns subset to ``need``, with ONLY the epoch
     visibility mask built host-side and uploaded (one small bool array).
@@ -460,7 +515,7 @@ def _wos_parts(db: VerticaDB, plan, need: Sequence[str],
     parts = []
     for host, owner in plan.sources:
         store = db.nodes[host].stores[owner]
-        buf = _get_wos_buffer(db, host, owner, mesh, axis, n_shards)
+        buf = _get_wos_buffer(db, host, owner, mesh, axis)
         if buf is None:
             continue
         w = fused_exec.wos_visible(store, as_of)
@@ -470,11 +525,11 @@ def _wos_parts(db: VerticaDB, plan, need: Sequence[str],
         if not vis.any():
             continue
         order, ss, pos = buf["layout"]
-        vbuf = np.zeros((n_shards, buf["per"]), bool)
+        vbuf = np.zeros((mesh.n_shards, buf["per"]), bool)
         vbuf[ss, pos] = vis[order]
         parts.append({
             "cols": {c: buf["cols"][c] for c in need},
-            "valid": to_device(vbuf, db.device),
+            "valid": _upload(mesh, vbuf),
             "dests": {k: buf["dests"][k] for k in reseg_keys},
             "per": buf["per"], "n_rows": int(vis.sum()),
             "r0": buf["r0"],
@@ -492,14 +547,19 @@ def _merge_bounds(a: Optional[tuple], b: Optional[tuple]
     return (min(a[0], b[0]), max(a[1], b[1]))
 
 
+def _cat_rows(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    return [torch.cat([x, y], 1) for x, y in zip(a, b)]
+
+
 def _concat_slabs(ros: dict, wos: dict) -> dict:
     """Append one slab to another shard-locally (both are already
     partitioned by the same ring map, so this is a concatenation along
-    each shard's rows -- no exchange)."""
-    return {"cols": {c: torch.cat([v, wos["cols"][c]], 1)
+    each shard's rows on its placement -- no exchange)."""
+    return {"cols": {c: _cat_rows(v, wos["cols"][c])
                      for c, v in ros["cols"].items()},
-            "valid": torch.cat([ros["valid"], wos["valid"]], 1),
-            "dests": {k: torch.cat([d, wos["dests"][k]], 1)
+            "valid": _cat_rows(ros["valid"], wos["valid"]),
+            "dests": {k: _cat_rows(d, wos["dests"][k])
                       for k, d in ros["dests"].items()},
             "per": ros["per"] + wos["per"],
             "n_rows": ros["n_rows"] + wos["n_rows"],
@@ -513,13 +573,13 @@ def _concat_slabs(ros: dict, wos: dict) -> dict:
 
 # ------------------------------------------------ slab-block pruning --
 
-def _prune_slab(q: LogicalQuery, slab: dict, n_shards: int, stats) -> dict:
+def _prune_slab(q: LogicalQuery, slab: dict, mesh, stats) -> dict:
     """Per-query slab-block pruning: the predicate's column bounds
     against the slab's per-block SMAs (device-computed at build time)
     select the surviving ``sb``-row blocks; each shard gathers just
-    those.  Conservative by construction -- a pruned block contains no
-    row satisfying the predicate, and the segmented subset only runs
-    inner joins, which never resurrect rows."""
+    those, on its placement.  Conservative by construction -- a pruned
+    block contains no row satisfying the predicate, and the segmented
+    subset only runs inner joins, which never resurrect rows."""
     if "bstats" not in slab:
         return slab
     bcounts, bmins, bmaxs = slab["bstats"]
@@ -543,6 +603,7 @@ def _prune_slab(q: LogicalQuery, slab: dict, n_shards: int, stats) -> dict:
     stats.blocks_pruned += total - kept
     if kept == total:
         return slab
+    n_shards = mesh.n_shards
     sb = slab["sb"]
     nb = slab["per"] // sb
     # gather width: the most surviving blocks on any shard.  kept == 0
@@ -556,42 +617,48 @@ def _prune_slab(q: LogicalQuery, slab: dict, n_shards: int, stats) -> dict:
         ki = np.flatnonzero(keep[s])[:k2]
         idx[s, :len(ki)] = ki
         live[s, :len(ki)] = True
-    dev = slab["valid"].device
-    idx_d = torch.from_numpy(idx).to(dev)
-    liv = torch.from_numpy(live).to(dev).repeat_interleave(sb, dim=1)
-    rows = torch.arange(n_shards, device=dev).unsqueeze(1)
+    k = mesh.shards_per_placement
+    cols = {c: [] for c in slab["cols"]}
+    dests = {d: [] for d in slab["dests"]}
+    valid, hists = [], []
+    for p, (lo, dev) in enumerate(mesh.placements()):
+        idx_d = torch.from_numpy(idx[lo:lo + k]).to(dev)
+        liv = torch.from_numpy(live[lo:lo + k]).to(dev).repeat_interleave(
+            sb, dim=1)
+        rows = torch.arange(k, device=dev).unsqueeze(1)
 
-    def gather(v: torch.Tensor) -> torch.Tensor:
-        return v.reshape(n_shards, nb, sb)[rows, idx_d].reshape(
-            n_shards, k2 * sb)
+        def gather(v: torch.Tensor) -> torch.Tensor:
+            return v.reshape(k, nb, sb)[rows, idx_d].reshape(k, k2 * sb)
 
-    cols = {c: gather(v) for c, v in slab["cols"].items()}
-    valid = gather(slab["valid"]) & liv
-    # gathered pad blocks replay block 0's destinations: re-point them at
-    # their own shard or they would travel on the next exchange and break
-    # the capacity accounting
-    me = _shard_ids(n_shards, dev)
-    dests = {k: torch.where(liv, gather(d), me)
-             for k, d in slab["dests"].items()}
-    # EXACT per-destination histograms over the surviving rows: the staged
-    # capacity proof needs ``real`` to count precisely the rows occupying
-    # slots (a pre-prune overestimate could undersize a SECOND resegment
-    # stage's own-shard pad accounting)
-    reals = to_host({k: _dest_hist(d, n_shards, valid).sum(0)
-                     for k, d in dests.items()})
+        for c, v in slab["cols"].items():
+            cols[c].append(gather(v[p]))
+        valid.append(gather(slab["valid"][p]) & liv)
+        # gathered pad blocks replay block 0's destinations: re-point
+        # them at their own shard or they would travel on the next
+        # exchange and break the capacity accounting
+        me = _shard_ids(k, dev, lo)
+        for d, v in slab["dests"].items():
+            dests[d].append(torch.where(liv, gather(v[p]), me))
+        # EXACT per-destination histograms over the surviving rows: the
+        # staged capacity proof needs ``real`` to count precisely the rows
+        # occupying slots (a pre-prune overestimate could undersize a
+        # SECOND resegment stage's own-shard pad accounting)
+        hists.append({d: _dest_hist(v[-1], n_shards, valid[-1]).sum(
+            0, keepdim=True) for d, v in dests.items()})
+    reals = _host_blocks(hists) if dests else {}
     r0_kept = np.array([int(bcounts[s][keep[s]].sum())
                         for s in range(n_shards)], np.int64)
     out = dict(slab)
     out.update(cols=cols, valid=valid, dests=dests, per=k2 * sb,
                r0=r0_kept,
-               real={k: v.astype(np.int64) for k, v in reals.items()})
+               real={d: v.sum(0).astype(np.int64) for d, v in reals.items()})
     out.pop("bstats", None)
     return out
 
 
 def _sharded_scan(db: VerticaDB, proj, plan, q: LogicalQuery, need,
-                  reseg_keys, as_of: int, mesh, axis: str, n_shards: int,
-                  stats) -> Optional[dict]:
+                  reseg_keys, as_of: int, mesh, axis: str, stats
+                  ) -> Optional[dict]:
     """Partitioned scan: the device-built ROS slab is cached (keyed by
     the effective epoch + exact container set, invalidated precisely by
     the tuple mover), pruned per query against its block SMAs, then the
@@ -611,7 +678,7 @@ def _sharded_scan(db: VerticaDB, proj, plan, q: LogicalQuery, need,
     ros = None
     if cache is None:
         ros = _build_ros_slab_device(db, proj, plan, need, reseg_keys,
-                                     as_of, mesh, axis, n_shards, stats)
+                                     as_of, mesh, stats)
         stats.seg_slab = "nocache"
     else:
         ceil = max((db.nodes[h].stores[o].epoch_ceiling(include_wos=False)
@@ -625,11 +692,10 @@ def _sharded_scan(db: VerticaDB, proj, plan, q: LogicalQuery, need,
         stats.seg_slab = "hit" if ros is not None else "miss"
         if ros is None:
             ros = _build_ros_slab_device(db, proj, plan, need, reseg_keys,
-                                         eff, mesh, axis, n_shards, stats)
+                                         eff, mesh, stats)
             if ros is not None:
                 cache.put(cid, key, KIND_SEG, ros, _slab_bytes(ros))
-    wos_parts = _wos_parts(db, plan, need, reseg_keys, as_of, mesh, axis,
-                           n_shards)
+    wos_parts = _wos_parts(db, plan, need, reseg_keys, as_of, mesh, axis)
     if wos_parts:
         stats.seg_slab += "+wos"
     if ros is None and not wos_parts:
@@ -637,7 +703,7 @@ def _sharded_scan(db: VerticaDB, proj, plan, q: LogicalQuery, need,
     stats.rows_scanned = (0 if ros is None else ros["n_rows"]) \
         + sum(p["n_rows"] for p in wos_parts)
     if ros is not None:
-        ros = _prune_slab(q, ros, n_shards, stats)
+        ros = _prune_slab(q, ros, mesh, stats)
     parts = ([] if ros is None else [ros]) + wos_parts
     slab = parts[0]
     for p in parts[1:]:
@@ -650,16 +716,17 @@ def _sharded_scan(db: VerticaDB, proj, plan, q: LogicalQuery, need,
 # ---------------------------------------------------------------------------
 
 def _partition_build(bnp: Dict[str, np.ndarray], shard: np.ndarray,
-                     n_shards: int, device) -> Dict[str, torch.Tensor]:
+                     mesh) -> Dict[str, List[torch.Tensor]]:
     """Place dimension rows onto shards by hash(dim_key), padded per shard
-    with copies of row 0, as ``[n_shards, per]`` tensors.  A pad copy is
-    harmless: a probe key equal to the pad's key hashes to the pad's home
-    shard, so on any other shard no probe row can match it, and on its
-    home shard the duplicate carries identical values."""
+    with copies of row 0, as the placements' ``[k, per]`` blocks.  A pad
+    copy is harmless: a probe key equal to the pad's key hashes to the
+    pad's home shard, so on any other shard no probe row can match it,
+    and on its home shard the duplicate carries identical values."""
+    n_shards = mesh.n_shards
     n = len(shard)
     if n == 0:
-        return {c: to_device(np.zeros((n_shards, 0), _canon_np(v).dtype),
-                             device) for c, v in bnp.items()}
+        return {c: _upload(mesh, np.zeros((n_shards, 0), _canon_np(v).dtype))
+                for c, v in bnp.items()}
     order, ss, pos, counts = _slab_positions(shard, n_shards)
     per = max(int(counts.max()), 1)
     out = {}
@@ -667,14 +734,15 @@ def _partition_build(bnp: Dict[str, np.ndarray], shard: np.ndarray,
         v = _canon_np(v)
         buf = np.full((n_shards, per), v[0], v.dtype)
         buf[ss, pos] = v[order]
-        out[c] = to_device(buf, device)
+        out[c] = _upload(mesh, buf)
     return out
 
 
-def _broadcast_build(bnp: Dict[str, np.ndarray], n_shards: int, mesh,
-                     axis: str, device) -> Dict[str, torch.Tensor]:
+def _broadcast_build(bnp: Dict[str, np.ndarray], mesh, axis: str
+                     ) -> Dict[str, List[torch.Tensor]]:
     """Split the build side contiguously across shards, then replicate it
     with the all_gather (exchange.broadcast_build_side)."""
+    n_shards = mesh.n_shards
     n = len(next(iter(bnp.values())))
     per = -(-n // n_shards) if n else 0
     cols = {}
@@ -682,17 +750,17 @@ def _broadcast_build(bnp: Dict[str, np.ndarray], n_shards: int, mesh,
         v = _canon_np(v)
         buf = np.full(n_shards * per, v[0] if n else 0, v.dtype)
         buf[:n] = v
-        cols[c] = to_device(buf.reshape(n_shards, per), device)
+        cols[c] = _upload(mesh, buf.reshape(n_shards, per))
     return exchange.broadcast_build_side(mesh, axis, cols)
 
 
 def _place_one_build(db: VerticaDB, spec, exch: str,
                      build: Dict[str, torch.Tensor], mesh, axis: str,
-                     n_shards: int, replicated: bool
-                     ) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """(placed device tensors, per-column host bounds) for one join: a
-    ``(n,)`` tensor every shard reads when ``replicated``, else one
-    ``[n_shards, per]`` partition per shard."""
+                     replicated: bool
+                     ) -> Tuple[Dict[str, List[torch.Tensor]], Dict]:
+    """(placed blocks, per-column host bounds) for one join: per
+    placement, a ``(n,)`` tensor every shard reads when ``replicated``,
+    else the ``[k, per]`` partitions of its shards."""
     bnp = to_host(build)
     bounds = {}
     for c, v in bnp.items():
@@ -703,22 +771,21 @@ def _place_one_build(db: VerticaDB, spec, exch: str,
         else:
             bounds[c] = None
     if exch == "broadcast":
-        return _broadcast_build(bnp, n_shards, mesh, axis,
-                                db.device), bounds
+        return _broadcast_build(bnp, mesh, axis), bounds
     if replicated:
-        return {c: to_device(_canon_np(v), db.device)
+        return {c: _replicate(mesh, _canon_np(v))
                 for c, v in bnp.items()}, bounds
     # co-located (probe placed by the join key) or the dim side of a
     # resegment: place rows by hash(dim_key) on the same offset-free
     # ring map the probe side uses
-    shard = shard_of(hash_columns(bnp[spec.dim_key]), n_shards)
-    return _partition_build(bnp, shard, n_shards, db.device), bounds
+    shard = shard_of(hash_columns(bnp[spec.dim_key]), mesh.n_shards)
+    return _partition_build(bnp, shard, mesh), bounds
 
 
 def _place_builds(db: VerticaDB, q: LogicalQuery, plan, as_of: int, mesh,
-                  axis: str, n_shards: int, stats=None
-                  ) -> Tuple[List[Dict[str, torch.Tensor]], List[bool],
-                             List[Dict]]:
+                  axis: str, stats=None
+                  ) -> Tuple[List[Dict[str, List[torch.Tensor]]],
+                             List[bool], List[Dict]]:
     """Returns (placed build dicts, per-join "replicated" flags -- the
     reference's P() in_specs --, per-join dim-column bounds).  Placed
     builds are cached device-side keyed by (dim table, join signature,
@@ -744,7 +811,7 @@ def _place_builds(db: VerticaDB, q: LogicalQuery, plan, as_of: int, mesh,
 
         def make(spec=spec, exch=exch, build=build, replicated=replicated):
             return _place_one_build(db, spec, exch, build, mesh, axis,
-                                    n_shards, replicated)
+                                    replicated)
         if cache is None:
             pb = make()
         else:
@@ -752,8 +819,8 @@ def _place_builds(db: VerticaDB, q: LogicalQuery, plan, as_of: int, mesh,
                 f"dim:{spec.dim_table}",
                 f"seg|{spec.signature()}|{exch}|{mh:016x}@{as_of}",
                 fused_exec.KIND_BUILD, make,
-                lambda v: sum(int(a.numel()) * a.element_size()
-                              for a in v[0].values()))
+                lambda v: _blocks_bytes([b for a in v[0].values()
+                                         for b in a]))
         placed.append(pb[0])
         bounds.append(pb[1])
     return placed, reps, bounds
@@ -802,25 +869,29 @@ def _shard_join(build: Dict[str, torch.Tensor], replicated: bool,
 
 
 def _shard_preagg(keys: torch.Tensor, valid: torch.Tensor,
-                  values: Dict[str, torch.Tensor], domain: int,
-                  aggs) -> Dict[str, torch.Tensor]:
-    """Shard-local dense pre-aggregation: ``[n_shards, domain]`` partials,
-    exactly each shard's own ``seg_preagg`` over its rows.  One launch
-    covers every shard -- keys clip into [0, domain) as the kernel clips
-    them, then move to ``shard * domain + key`` over a domain of
-    ``n_shards * domain`` -- unless that passes the int32 key lane, where
-    each shard launches on its own."""
-    n_shards = keys.shape[0]
+                  values: Dict[str, torch.Tensor], domain: int, aggs,
+                  first: int, n_shards: int) -> Dict[str, torch.Tensor]:
+    """Shard-local dense pre-aggregation of one placement's ``k`` shards
+    from shard ``first`` on: ``[k, domain]`` partials, exactly each
+    shard's own ``seg_preagg`` over its rows.  One launch covers the
+    placement's shards -- keys clip into [0, domain) as the kernel clips
+    them, then move to ``shard * domain + key`` with the GLOBAL shard id,
+    over the mesh's whole domain of ``n_shards * domain``, so each
+    placement fills its own shards' rows of the table one launch over
+    every shard would -- unless that passes the int32 key lane, where each
+    shard launches on its own."""
+    k = keys.shape[0]
     if n_shards * domain < _PACK_LIMIT:
-        k = _shard_ids(n_shards, keys.device) * domain \
+        g = _shard_ids(k, keys.device, first) * domain \
             + keys.to(torch.int32).clamp(0, domain - 1)
-        out = kops.seg_preagg(k.reshape(-1), valid.reshape(-1),
+        out = kops.seg_preagg(g.reshape(-1), valid.reshape(-1),
                               {c: v.reshape(-1) for c, v in values.items()},
                               n_shards * domain, aggs)
-        return {name: v.reshape(n_shards, domain) for name, v in out.items()}
+        return {name: v.reshape(n_shards, domain)[first:first + k]
+                for name, v in out.items()}
     parts = [kops.seg_preagg(keys[s].to(torch.int32), valid[s],
                              {c: v[s] for c, v in values.items()},
-                             domain, aggs) for s in range(n_shards)]
+                             domain, aggs) for s in range(k)]
     return {name: torch.stack([p[name] for p in parts]) for name in parts[0]}
 
 
@@ -835,55 +906,39 @@ def _shard_groupby_sort(keys: torch.Tensor, valid: torch.Tensor,
     return {name: torch.stack([p[name] for p in parts]) for name in parts[0]}
 
 
-def _build_stage(n_shards: int, specs: Sequence, reps: Sequence[bool],
+def _build_stage(mesh, specs: Sequence, reps: Sequence[bool],
                  reseg_key: Optional[str], final_cfg):
     """One exchange->join(->pre-agg) stage as a single closure over the
-    shard dimension: ``exchange.resegment_local`` (when the stage opens
-    with a Send/Recv), the stage's hash joins, and -- for the final stage
-    -- derived exprs, deferred predicate, key packing and the shard-local
-    pre-aggregation.  The exchange OVERFLOW report is returned as an
-    output instead of being checked inline, so a multi-stage query runs
-    its whole chain without a host sync in the middle.  The exchange
-    capacity ``per_new`` is an argument, so data growth reuses the entry."""
+    placements: ``exchange.resegment_blocks`` (when the stage opens with a
+    Send/Recv), then on each placement the stage's hash joins, and -- for
+    the final stage -- derived exprs, deferred predicate, key packing and
+    the shard-local pre-aggregation.  Inputs and outputs are per
+    placement: columns, valid and destinations as lists of ``[k, per]``
+    blocks, each build as lists of its placements' blocks; the result is
+    one dict per placement.  The exchange OVERFLOW report is returned as
+    an output instead of being checked inline, so a multi-stage query
+    runs its whole chain without a host sync in the middle.  The exchange
+    capacity ``per_new`` is an argument, so data growth reuses the
+    entry."""
     reseg = reseg_key is not None
+    k = mesh.shards_per_placement
+    placements = mesh.placements()
 
     if final_cfg is not None:
         (ir, algo, domains, lows, domain, local_aggs, values_cols,
          packed) = final_cfg
 
-    def run(cols, valid, dests, builds, per_new: int):
-        cols = dict(cols)
-        dests = dict(dests)
+    def local(cols, valid, dests, builds, first: int):
+        """The stage's work on one placement's shards."""
         dev = valid.device
-        if reseg:
-            dest_l = dests.pop(reseg_key)
-            names = sorted(cols)
-            dkeys = sorted(dests)
-            vals = (tuple(cols[c] for c in names)
-                    + tuple(dests[k] for k in dkeys)
-                    + (valid.to(torch.int8),))
-            outs, vr, overflow = exchange.resegment_local(
-                n_shards, per_new, dest_l, vals)
-            nn = len(names)
-            cols = dict(zip(names, outs[:nn]))
-            # empty slots point at their own shard so the NEXT exchange
-            # leaves them in place; occupied slots keep their moved
-            # destination (a join-invalidated row's destination is still
-            # counted by the build histogram)
-            me = _shard_ids(n_shards, dev)
-            dests = {k: torch.where(vr, outs[nn + i], me)
-                     for i, k in enumerate(dkeys)}
-            valid = (outs[-1] != 0) & vr
-        else:
-            overflow = torch.zeros(n_shards, dtype=torch.int32, device=dev)
         for spec, bld, rep in zip(specs, builds, reps):
             cols, valid = _shard_join(bld, rep, spec, cols, valid)
         if final_cfg is None:
             out = dict(cols)
             out["__valid"] = valid
-            for k, d in dests.items():
-                out["__d:" + k] = d
-            return out, overflow
+            for key, d in dests.items():
+                out["__d:" + key] = d
+            return out
         for name, e in ir.derived:
             cols[name] = e(cols)
         if ir.predicate is not None:
@@ -891,16 +946,50 @@ def _build_stage(n_shards: int, specs: Sequence, reps: Sequence[bool],
         values = {c: cols[c] for c in values_cols}
         if not ir.group_by:
             keys = torch.zeros(valid.shape, dtype=torch.int32, device=dev)
-            return _shard_preagg(keys, valid, values, 1, local_aggs), \
-                overflow
+            return _shard_preagg(keys, valid, values, 1, local_aggs, first,
+                                 mesh.n_shards)
         keys = ops.pack_keys([cols[g] for g in ir.group_by], domains, lows) \
             if packed else cols[ir.group_by[0]]
         if algo == "dense":
-            out = _shard_preagg(keys, valid, values, domain, local_aggs)
+            return _shard_preagg(keys, valid, values, domain, local_aggs,
+                                 first, mesh.n_shards)
+        return _shard_groupby_sort(keys, valid, values, domain, local_aggs)
+
+    def run(cols, valid, dests, builds, per_new: int):
+        dests = dict(dests)
+        if reseg:
+            dest_l = dests.pop(reseg_key)
+            names = sorted(cols)
+            dkeys = sorted(dests)
+            vals = [tuple(cols[c][p] for c in names)
+                    + tuple(dests[d][p] for d in dkeys)
+                    + (valid[p].to(torch.int8),)
+                    for p in range(len(placements))]
+            moved, vr, overflow = exchange.resegment_blocks(
+                mesh, per_new, dest_l, vals)
         else:
-            out = _shard_groupby_sort(keys, valid, values, domain,
-                                      local_aggs)
-        return out, overflow
+            overflow = torch.zeros(mesh.n_shards, dtype=torch.int32,
+                                   device=mesh.device)
+        outs = []
+        for p, (first, dev) in enumerate(placements):
+            if reseg:
+                nn = len(names)
+                c_p = dict(zip(names, moved[p][:nn]))
+                # empty slots point at their own shard so the NEXT
+                # exchange leaves them in place; occupied slots keep their
+                # moved destination (a join-invalidated row's destination
+                # is still counted by the build histogram)
+                me = _shard_ids(k, dev, first)
+                d_p = {d: torch.where(vr[p], moved[p][nn + i], me)
+                       for i, d in enumerate(dkeys)}
+                v_p = (moved[p][-1] != 0) & vr[p]
+            else:
+                c_p = {c: v[p] for c, v in cols.items()}
+                d_p = {d: v[p] for d, v in dests.items()}
+                v_p = valid[p]
+            b_p = [{c: v[p] for c, v in bld.items()} for bld in builds]
+            outs.append(local(c_p, v_p, d_p, b_p, first))
+        return outs, overflow
 
     return run
 
@@ -1006,6 +1095,7 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
         return None               # no static pack bounds for derived keys
 
     n_shards = int(mesh.shape[axis])
+    cards = tuple(dict.fromkeys((db.device,) + mesh.cards()))
 
     # ---- RLE-direct routes: aggregate each node's encoded runs and
     # merge -- the paper's "operate directly on encoded data" beats
@@ -1047,7 +1137,7 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
 
     def _tick(label: str, t0: float) -> float:
         if timing:
-            _sync(db.device)
+            _sync(cards)
             t1 = time.perf_counter()
             stats.stage_ms[label] = stats.stage_ms.get(label, 0.0) \
                 + (t1 - t0) * 1e3
@@ -1056,13 +1146,13 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
 
     t0 = time.perf_counter() if timing else 0.0
     slab = _sharded_scan(db, proj, plan, q, need, reseg_keys, as_of, mesh,
-                         axis, n_shards, stats)
+                         axis, stats)
     if slab is None:
         return None               # empty snapshot: pipeline shapes it
     _tick("slab_build", t0)
 
     builds, reps, build_bounds = _place_builds(
-        db, q, plan, as_of, mesh, axis, n_shards, stats)
+        db, q, plan, as_of, mesh, axis, stats)
 
     # ---- static pack radices for the group keys (exact host bounds) ----
     aggs = tuple(q.aggs)
@@ -1157,8 +1247,8 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
                        sreps, mesh_sig, reseg_key)
                 cfg = None
             fn, hit = PLAN_CACHE.get_or_build(
-                sig, lambda: _build_stage(n_shards, specs, sreps,
-                                          reseg_key, cfg))
+                sig, lambda: _build_stage(mesh, specs, sreps, reseg_key,
+                                          cfg))
             hit_all &= hit
             out, overflow = fn(cols, valid, dest_cols, sb, per_new)
             if reseg_key is not None:
@@ -1171,10 +1261,10 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
                 res = out
             else:
                 ts = _tick("exchange_join", ts)
-                valid = out.pop("__valid")
-                dest_cols = {k[4:]: v for k, v in out.items()
+                valid = [o["__valid"] for o in out]
+                dest_cols = {k[4:]: [o[k] for o in out] for k in out[0]
                              if k.startswith("__d:")}
-                cols = {c: v for c, v in out.items()
+                cols = {c: [o[c] for o in out] for c in out[0]
                         if not c.startswith("__")}
         return res, overflows
 
@@ -1188,9 +1278,10 @@ def execute_segmented(db: VerticaDB, q: LogicalQuery, plan, as_of: int,
         if r is None:
             return None
         res0, overflows = r
-        if overflows:
-            res0 = dict(res0, __overflow=torch.stack(overflows))
-        host = to_host(res0)
+        # the placements' partials, concatenated in shard order, in one
+        # copy per device
+        host = _host_blocks(res0, {"__overflow": torch.stack(overflows)}
+                            if overflows else None)
         ov = int(host.pop("__overflow").sum()) if overflows else 0
         if ov == 0:
             res = host

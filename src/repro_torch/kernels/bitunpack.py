@@ -172,7 +172,8 @@ def bitunpack(words: torch.Tensor, width: int, block_rows: int,
     CPU tensor takes the plain version."""
     _check_stream(words, width, block_rows)
     if words.is_cuda:
-        return _launch(words, width, block_rows, base)
+        with torch.cuda.device(words.device):
+            return _launch(words, width, block_rows, base)
     return bitunpack_plain(words, width, block_rows, base)
 
 
@@ -240,7 +241,8 @@ def bitunpack_segments(segs: Sequence[Segment],
             raise ValueError(f"bitunpack_segments: kept blocks outside "
                              f"0..{s.words.shape[0] - 1}")
     if segs[0].words.is_cuda:
-        return _launch_segments(segs, block_rows)
+        with torch.cuda.device(segs[0].words.device):
+            return _launch_segments(segs, block_rows)
     return bitunpack_segments_plain(segs, block_rows)
 
 

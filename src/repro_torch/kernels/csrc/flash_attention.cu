@@ -89,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"   // mbarriers, TMA, wgmma descriptors and forms, maps
+#include "smem_opt_in.cuh"
 
 // ------------------------------------------------------ f32: CUDA cores --
 
@@ -504,14 +505,10 @@ static int launch(const CUtensorMap* maps, void* out, const Args& a,
                   cudaStream_t stream) {
   constexpr int kSmem = 1024 + (1 + 2 * kStages) * (DP / kSlab) * kTileBytes +
                         (1 + 2 * kStages) * 8;
-  static bool sized = false;           // raise the dynamic shared limit once
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel_sm90<DP, kLse>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  static std::atomic<unsigned long long> sized{0};   // once per device
+  const cudaError_t e =
+      opt_in_smem(sized, flash_attention_kernel_sm90<DP, kLse>, kSmem);
+  if (e != cudaSuccess) return (int)e;
   flash_attention_kernel_sm90<DP, kLse>
       <<<(unsigned)(a.n_q * a.n_qtiles), kThreads, kSmem, stream>>>(
           maps[0], maps[1], maps[2], (__nv_bfloat16*)out, a);

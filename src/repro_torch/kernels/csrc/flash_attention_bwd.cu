@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -787,17 +788,13 @@ int launch(const CUtensorMap* maps, void* dq, void* dk, void* dv,
                           2 * kStagesKV * kSlabs * kSmall +
                           2 * kStagesKV * kQRows * 4 +
                           (1 + 2 * kStagesKV) * 8;
-  static bool sized = false;           // raise the dynamic shared limit once
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bwd_dq_sm90<DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
+  static std::atomic<unsigned long long> sized_dq{0}, sized_kv{0};
+  {                                    // once per device
+    cudaError_t e =
+        opt_in_smem(sized_dq, flash_attention_bwd_dq_sm90<DP>, kSmemDq);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_sm90<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemKv);
+    e = opt_in_smem(sized_kv, flash_attention_bwd_dkdv_sm90<DP>, kSmemKv);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
   }
   // maps: q, k, v, o, do in 128-row boxes, then q, do in 64-row boxes
   flash_attention_bwd_dq_sm90<DP>

@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include "float_atomics.cuh"
+#include "smem_opt_in.cuh"
 
 #define RLE_MAX_SEGS 64
 
@@ -169,14 +170,10 @@ extern "C" int rle_grouped_agg_launch(int n_segs, const void* const* keys,
   if (blocks < 1) blocks = 1;                  // direct with no runs
   if (shared) {
     if (smem > 48 * 1024) {
-      static std::atomic<bool> opted{false};   // once per process
-      if (!opted.load()) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            rle_grouped_agg_kernel<true>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-        if (e != cudaSuccess) return (int)e;
-        opted.store(true);
-      }
+      static std::atomic<unsigned long long> opted{0};   // once per device
+      const cudaError_t e =
+          opt_in_smem(opted, rle_grouped_agg_kernel<true>, kSmemMax);
+      if (e != cudaSuccess) return (int)e;
     }
     rle_grouped_agg_kernel<true><<<(unsigned)blocks, kSharedThreads, smem,
                                    st>>>(segs, total, domain, lo, hi,

@@ -61,5 +61,6 @@ def delta_decode(first: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
                          f"deltas {tuple(deltas.shape)} are not (nb, 1) "
                          f"and (nb, B)")
     if deltas.is_cuda:
-        return _launch(first, deltas)
+        with torch.cuda.device(deltas.device):
+            return _launch(first, deltas)
     return delta_decode_plain(first, deltas)

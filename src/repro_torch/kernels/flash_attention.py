@@ -348,7 +348,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bq <= 0 or bk <= 0:
         raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk}")
     if q.is_cuda:
-        return _launch(q, k, v, causal, return_lse)
+        with torch.cuda.device(q.device):
+            return _launch(q, k, v, causal, return_lse)
     if q.is_meta:
         out, lse = _flash_meta(q, k, v, causal, return_lse)
         return (out, lse) if return_lse else out
@@ -492,7 +493,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                          f"{tuple(k.shape[:-2])} do not broadcast to "
                          f"{tuple(q.shape[:-2])}")
     if q.is_cuda:
-        return _launch_bwd(q, k, v, out, dout, lse, causal)
+        with torch.cuda.device(q.device):
+            return _launch_bwd(q, k, v, out, dout, lse, causal)
     if q.is_meta:
         return _flash_bwd_meta(q, k, v, out, dout, lse, causal)
     return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)

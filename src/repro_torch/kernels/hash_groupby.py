@@ -91,5 +91,6 @@ def onehot_groupby(keys: torch.Tensor, values: torch.Tensor, *,
         raise ValueError(f"onehot_groupby: keys {tuple(keys.shape)} and "
                          f"values {tuple(values.shape)} must be one (nb, B)")
     if keys.is_cuda:
-        return _launch(keys, values, domain)
+        with torch.cuda.device(keys.device):
+            return _launch(keys, values, domain)
     return onehot_groupby_plain(keys, values, domain=domain)

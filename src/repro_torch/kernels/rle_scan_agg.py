@@ -196,7 +196,8 @@ def rle_grouped_agg_many(segments: Sequence[Segment], *, domain: int,
     segments = _segments(segments)
     lo, hi = float(lo), float(hi)
     if segments[0][0].is_cuda:
-        return _launch_many(segments, domain, lo, hi)
+        with torch.cuda.device(segments[0][0].device):
+            return _launch_many(segments, domain, lo, hi)
     return rle_grouped_agg_many_plain(segments, domain=domain, lo=lo, hi=hi)
 
 
@@ -213,8 +214,9 @@ def rle_grouped_agg(run_values: torch.Tensor, run_lengths: torch.Tensor,
     if domain < 1:
         raise ValueError(f"rle_grouped_agg: domain {domain} < 1")
     if run_values.is_cuda:
-        return _launch_many([(run_values, run_lengths, values)], domain,
-                            float(lo), float(hi))
+        with torch.cuda.device(run_values.device):
+            return _launch_many([(run_values, run_lengths, values)], domain,
+                                float(lo), float(hi))
     return rle_grouped_agg_plain(run_values, run_lengths, values,
                                  domain=domain, lo=lo, hi=hi)
 
@@ -342,7 +344,8 @@ def rle_filter_agg_many(segments: Sequence[Tuple[torch.Tensor,
     segments = _filter_segments(segments)
     lo, hi = float(lo), float(hi)
     if segments[0][0].is_cuda:
-        return _launch_filter_many(segments, lo, hi)
+        with torch.cuda.device(segments[0][0].device):
+            return _launch_filter_many(segments, lo, hi)
     return rle_filter_agg_many_plain(segments, lo=lo, hi=hi)
 
 
@@ -357,5 +360,6 @@ def rle_filter_agg(run_values: torch.Tensor, run_lengths: torch.Tensor, *,
                          f"{tuple(run_lengths.shape)} must be one (nb, R)")
     lo, hi = float(lo), float(hi)
     if run_values.is_cuda:
-        return _launch_filter(run_values, run_lengths, lo, hi)
+        with torch.cuda.device(run_values.device):
+            return _launch_filter(run_values, run_lengths, lo, hi)
     return rle_filter_agg_plain(run_values, run_lengths, lo=lo, hi=hi)

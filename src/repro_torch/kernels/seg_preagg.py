@@ -205,5 +205,6 @@ def seg_preagg(keys: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"seg_preagg: keys {tuple(keys.shape)} and valid "
                          f"{tuple(valid.shape)} must be one (n,) shape")
     if keys.is_cuda:
-        return _launch(keys, valid, values, domain, aggs)
+        with torch.cuda.device(keys.device):
+            return _launch(keys, valid, values, domain, aggs)
     return seg_preagg_plain(keys, valid, values, domain, aggs)

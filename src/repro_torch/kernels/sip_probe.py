@@ -105,5 +105,6 @@ def semijoin_probe(keys: torch.Tensor,
                          f"at most {MAX_BUILD}; chunk the build side "
                          f"upstream")
     if keys.is_cuda:
-        return _launch(keys, build_keys)
+        with torch.cuda.device(keys.device):
+            return _launch(keys, build_keys)
     return semijoin_probe_plain(keys, build_keys)

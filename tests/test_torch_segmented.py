@@ -7,9 +7,11 @@ replicated, parts resegmented, promo broadcast; 4 nodes, K=1,
 ``block_rows`` 64) -- go into a reference ``repro.core.VerticaDB`` and a
 port one on the CPU, and the same queries run on both.  The reference runs
 segmented on its one CPU device; the port runs segmented at 1 and at 4
-logical shards and single-node.  Port segmented == port single-node ==
-reference segmented: ints and counts exactly, floats within the reference
-test's rtol 1e-3 / atol 1e-2 (partial sums merge in another order).
+logical shards (one placement), at 4 shards on 4 CPU placements
+(``PLACED``) where a test names it, and single-node.  Port segmented ==
+port single-node == reference segmented: ints and counts exactly, floats
+within the reference test's rtol 1e-3 / atol 1e-2 (partial sums merge in
+another order); 4 placements == 4 logical shards bit for bit on ints.
 
 The device hash and shard twins go bit for bit against numpy's
 ``hash_columns`` / ``shard_of`` and against the reference's jax twins, and
@@ -46,6 +48,7 @@ from repro_torch.planner import plan_query
 N_FACT = 4000
 N_CUST, N_SUPP, N_PART, N_PROMO = 300, 40, 2000, 30
 SIDES = {"ref": (ref_core, ref_engine), "port": (port_core, port_engine)}
+PLACED = (4, 4)      # a layout: 4 shards over 4 CPU placements
 
 # -- join templates: (dim, on, carried col, expected exchange strategy) --
 JOINS = {
@@ -183,14 +186,35 @@ def ref_seg(db, qb):
         db.detach_mesh()
 
 
+def mesh_of(layout):
+    """``n`` logical shards on one CPU placement, or ``(n, p)``: n shards
+    over p CPU placements."""
+    if isinstance(layout, tuple):
+        n, p = layout
+        return make_query_mesh(n, devices=["cpu"] * p)
+    return make_query_mesh(layout, device="cpu")
+
+
 def port_run(db, qb, n_shards=None):
-    """The port at ``n_shards`` logical shards, or single-node (None)."""
+    """The port on the layout ``n_shards`` (``mesh_of``), or single-node
+    (None)."""
     if n_shards is not None:
-        db.attach_mesh(make_query_mesh(n_shards, device="cpu"))
+        db.attach_mesh(mesh_of(n_shards))
     try:
         return port_engine.execute(db, qb.to_ir())
     finally:
         db.detach_mesh()
+
+
+def assert_same_ints(a, b, ordered, label):
+    """Two segmented layouts' answers: ints bit for bit, floats within
+    assert_match's tolerance."""
+    ca, cb = canon(a, ordered), canon(b, ordered)
+    for c in ca:
+        if ca[c].dtype.kind in "iub":
+            assert ca[c].dtype == cb[c].dtype, (label, c)
+            assert np.array_equal(ca[c], cb[c]), (label, c)
+    assert_match(a, b, ordered, label)
 
 
 def both_queries(dbs, build):
@@ -200,8 +224,9 @@ def both_queries(dbs, build):
 
 def check_all(dbs, qs, label, *, ordered=False, shards=(1, 4),
               ref_segmented=False, ref=True):
-    """reference == port single-node == port segmented at each width;
-    returns the port's stats per width.  The reference runs single-node
+    """reference == port single-node == port segmented at each layout
+    (``mesh_of``), and 4 placements == 4 logical shards bit for bit on
+    ints where both run; returns the port's stats per layout.  The reference runs single-node
     unless ``ref_segmented`` (its segmented path compiles several jax
     programs per query shape, seconds each on the CPU, so the corpus
     takes it and the rest lean on it), or not at all without ``ref``."""
@@ -215,17 +240,21 @@ def check_all(dbs, qs, label, *, ordered=False, shards=(1, 4),
                                               qs["ref"].to_ir())
     if ref:
         assert_match(want, single, ordered, f"{label}/single")
-    out = {}
+    out, results = {}, {}
     for n in shards:
         got, stats = port_run(dbs["port"], qs["port"], n)
         assert stats.reseg_overflow == 0
         if stats.segmented:
-            assert stats.n_shards == n
+            assert stats.n_shards == (n[0] if isinstance(n, tuple) else n)
         if ref_segmented:
             assert stats.segmented == rstats.segmented, (label, n)
             assert stats.exchange == rstats.exchange, (label, n)
         assert_match(single, got, ordered, f"{label}/{n}")
-        out[n] = stats
+        out[n], results[n] = stats, got
+    if 4 in results and PLACED in results:
+        assert out[PLACED].exchange == out[4].exchange, label
+        assert_same_ints(results[4], results[PLACED], ordered,
+                         f"{label}/placed")
     return out
 
 
@@ -234,9 +263,9 @@ def check_all(dbs, qs, label, *, ordered=False, shards=(1, 4),
 # ---------------------------------------------------------------------------
 
 def test_differential_corpus(star):
-    """20 seeded queries: port segmented (1 and 4 shards) == port
-    single-node == reference segmented, and all three exchange strategies
-    occur at 4 shards."""
+    """20 seeded queries: port segmented (1 and 4 shards, and 4 shards on
+    4 placements) == port single-node == reference segmented, and all
+    three exchange strategies occur at 4 shards."""
     rngs = {side: np.random.default_rng(2024) for side in star}
     seen = set()
     for i in range(20):
@@ -244,8 +273,8 @@ def test_differential_corpus(star):
               for side in star}
         ordered = bool(qs["port"].to_ir().order_by)
         stats = check_all(star, qs, f"q{i}", ordered=ordered,
-                          ref_segmented=True)
-        assert stats[4].segmented, i
+                          shards=(1, 4, PLACED), ref_segmented=True)
+        assert stats[4].segmented and stats[PLACED].segmented, i
         seen.update(e for e in stats[4].exchange.split(";") if e)
     assert {"local", "broadcast", "resegment"} <= seen, seen
 
@@ -258,8 +287,9 @@ def test_exchange_strategy_per_join(star, dim):
         .group_by(carried).agg(n=("*", "count"), s=("qty", "sum"))))
     plan = plan_query(star["port"], qs["port"].to_ir())
     assert plan.join_exchanges == (expected,), plan.join_strategy
-    stats = check_all(star, qs, dim)
+    stats = check_all(star, qs, dim, shards=(1, 4, PLACED))
     assert stats[4].segmented and stats[4].exchange == expected
+    assert stats[PLACED].segmented and stats[PLACED].exchange == expected
 
 
 def test_scalar_aggregate(star):
@@ -532,8 +562,8 @@ def test_fail_load_rejoin_recover_cycle():
     def check(label):
         for qi, q in enumerate(queries):
             stats = check_all(dbs, both_queries(dbs, q), f"{label}-{qi}",
-                              shards=(4,))
-            assert stats[4].segmented
+                              shards=(4, PLACED))
+            assert stats[4].segmented and stats[PLACED].segmented
 
     for side, db in dbs.items():
         db.fail_node(1)
@@ -640,9 +670,12 @@ def test_segmented_pruning_differential(star):
     qs = both_queries(star, lambda db, col: (
         db.query("sales").where((col("day") >= 40) & (col("day") < 80))
         .group_by("suppkey").agg(n=("*", "count"), s=("qty", "sum"))))
-    stats = check_all(star, qs, "pruned-range")[4]
-    assert stats.segmented and stats.blocks_total > 0
-    assert 0 < stats.blocks_pruned < stats.blocks_total
+    stats = check_all(star, qs, "pruned-range", shards=(1, 4, PLACED))
+    for layout in (4, PLACED):
+        st = stats[layout]
+        assert st.segmented and st.blocks_total > 0
+        assert 0 < st.blocks_pruned < st.blocks_total
+    assert stats[PLACED].blocks_pruned == stats[4].blocks_pruned
 
 
 def test_rle_route_on_the_sort_leader(monkeypatch):
